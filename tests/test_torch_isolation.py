@@ -1,0 +1,57 @@
+"""The PyTorch port imports neither JAX nor the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "flexs_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "flexs_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_are_found():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("flexs_tpu_torch", "ops", "cuda_duplex.py") in names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_forbidden_match_is_exact():
+    assert "flexs_tpu_torch".split(".")[0] not in FORBIDDEN
+    assert "flexs_tpu.ops".split(".")[0] in FORBIDDEN
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys, flexs_tpu_torch, flexs_tpu_torch.runtime; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
