@@ -5,7 +5,8 @@
 
 Phases (any failed check raises, and the script exits nonzero):
   1. build the CUDA duplex kernel (flexs_tpu_torch/csrc/duplex_dp.cu) from
-     this checkout with nvcc;
+     this checkout with nvcc, and start the builds of its three row-cost
+     knockouts beside it (one nvcc each, in threads);
   2. hold the kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes and a few edge cases,
      requiring bitwise equality, and time both with CUDA events;
@@ -14,24 +15,30 @@ Phases (any failed check raises, and the script exits nonzero):
      strength 0.9) and check the run's invariants;
   4. run the host path: Adalead + NoisyAbstractModel on the same landscape
      for 3 rounds;
-  5. print one JSON line describing each kernel, the card's name and power
+  5. row-cost knockouts: the path of `python -m
+     flexs_tpu_torch.profile_duplex_rowcost`.  Wait for the knockout builds,
+     then `profile_duplex_rowcost.measure` runs every variant on the
+     profiler's seeded inputs at B=4096 and B=100, requires baseline and
+     unrolled to equal the plain version bitwise and const-rec and
+     carry-windows (wrong by design) to give finite f32[B], and times each;
+  6. print one JSON line describing each kernel, the card's name and power
      limit, and last the device JSON line.
 
-Each main-path phase sets the kernel's launch counter to 0 just before it
-and reads it just after; a phase in which the kernel never launched fails.
-The script needs one CUDA card and imports nothing of JAX.
+Each path's phase sets the launch counters of every build to 0 just before
+it and reads them just after; a phase in which one of its kernels never
+launched fails, and so does a main-path run that launched a knockout
+build.  The script needs one CUDA card and imports nothing of JAX.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 0
-TIMING_REPS = 5
-TIMING_INNER_KERNEL = 20
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -44,23 +51,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int, inner: int) -> float:
-    """Median over `reps` of the mean ms per call of `inner` back-to-back calls."""
-    fn()  # warm up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
 
 
 def dp_operations(b: int, n_t: int, l1: int, l2: int, maxloop: int) -> int:
@@ -79,6 +69,42 @@ def dp_operations(b: int, n_t: int, l1: int, l2: int, maxloop: int) -> int:
         + 2  # the two pushed window channels
     )
     return b * n_t * l1 * l2 * per_cell
+
+
+def timed_build(cuda_duplex, variant):
+    """(seconds, library path, compiler log) of one variant's build."""
+    t0 = time.perf_counter()
+    path, log = cuda_duplex.build(variant)
+    return time.perf_counter() - t0, path, log
+
+
+def print_build(variant, seconds, path, log):
+    print(f"build {variant}: {seconds} s -> {path}")
+    for line in log.splitlines():
+        if "ptxas" in line:
+            print(f"build {variant}: {line.strip()}")
+
+
+def bound_entry(n_bytes: int, dims) -> dict:
+    """The least time the card could take for one DP launch of `dims`.
+
+    The larger of moving `n_bytes` once at the memory rate and doing the
+    DP's operations at the f32 rate.
+    """
+    ops = dp_operations(*dims)
+    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"bound_ms": bound[bound_by], "bound_by": bound_by, "n_bytes": n_bytes,
+            "operations": ops}
+
+
+def main_path_counts(cuda_duplex, path: str) -> dict:
+    """Launch counts of a main path's run: the baseline build only, at least once."""
+    counts = cuda_duplex.launch_counts()
+    assert counts["baseline"] > 0, f"the {path} run never launched the duplex kernel"
+    stray = {v: n for v, n in counts.items() if v != "baseline" and n}
+    assert not stray, f"the {path} run launched knockout builds: {stray}"
+    return counts
 
 
 def kernel_vs_plain(cuda_duplex, tokens, targets_rev, em, maxloop):
@@ -129,8 +155,10 @@ def main() -> int:
         return 1
 
     import flexs_tpu_torch as flexs
+    from flexs_tpu_torch import profile_duplex_rowcost as rowcost
     from flexs_tpu_torch.landscapes import rna
     from flexs_tpu_torch.ops import cuda_duplex
+    from flexs_tpu_torch.profile_duplex_rowcost import time_ms
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -139,14 +167,11 @@ def main() -> int:
     problem = reg["L100_RNA1"]
     start = problem["starts"][1]
 
-    # 1. Build.
-    t0 = time.perf_counter()
-    lib_path, build_log = cuda_duplex.build()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s} s -> {lib_path}")
-    for line in build_log.splitlines():
-        if "ptxas" in line:
-            print(f"build: {line.strip()}")
+    # 1. Build: the knockouts in threads, the main path's kernel meanwhile.
+    knockouts = [v for v in cuda_duplex.VARIANTS if v != "baseline"]
+    build_pool = ThreadPoolExecutor(max_workers=len(knockouts))
+    knockout_builds = {v: build_pool.submit(timed_build, cuda_duplex, v) for v in knockouts}
+    print_build("baseline", *timed_build(cuda_duplex, "baseline"))
     print(f"card: {card}")
 
     # 2. Kernel vs plain version on the card.
@@ -193,32 +218,26 @@ def main() -> int:
     # Timing at the main path's shape (B=100) and a wider batch (B=512).
     # The kernel alone is timed on prepared arguments; the wrapper's time
     # adds its torch prep.
+    reps, inner = rowcost.TIMING_REPS, rowcost.TIMING_INNER
     timings = {}
     for b in (100, 512):
         tokens = random_tokens(b, 100)
         args, dims = cuda_duplex.prepare(tokens, targets_rev, em, maxloop)
-        ms = time_ms(
-            lambda: cuda_duplex.launch(args, dims), TIMING_REPS, TIMING_INNER_KERNEL
-        )
-        wrapper_ms = time_ms(
-            lambda: cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop),
-            TIMING_REPS, TIMING_INNER_KERNEL,
-        )
-        plain_ms = time_ms(
-            lambda: cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop),
-            TIMING_REPS, 1,
-        )
-        n_bytes = sum(a.numel() * a.element_size() for a in args)
-        ops = dp_operations(*dims)
-        bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
-        bound_by = max(bound, key=bound.get)
-        timings[b] = {
-            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound[bound_by], "bound_by": bound_by,
+        entry = {
+            "ms": time_ms(lambda: cuda_duplex.launch(args, dims), reps, inner),
+            "plain_ms": time_ms(
+                lambda: cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop),
+                reps, 1),
+            **bound_entry(sum(a.numel() * a.element_size() for a in args), dims),
+            "wrapper_ms": time_ms(
+                lambda: cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop),
+                reps, inner),
         }
-        print(f"timing B={b}, T=1, L1=L2=100: kernel {ms} ms, wrapper {wrapper_ms} ms, "
-              f"plain {plain_ms} ms, bound {bound[bound_by]} ms ({bound_by}; "
-              f"{n_bytes} bytes, {ops} operations)")
+        timings[b] = entry
+        print(f"timing B={b}, T=1, L1=L2=100: kernel {entry['ms']} ms, "
+              f"wrapper {entry['wrapper_ms']} ms, plain {entry['plain_ms']} ms, "
+              f"bound {entry['bound_ms']} ms ({entry['bound_by']}; "
+              f"{entry['n_bytes']} bytes, {entry['operations']} operations)")
 
     # 3. Fused main path at full width.
     runner = flexs.runtime.DeviceAdaleadNAM(
@@ -227,13 +246,12 @@ def main() -> int:
         signal_strength=0.9, seed=0,
     )
     cost_before = land.cost
-    cuda_duplex.launches = 0
+    cuda_duplex.reset_launch_counts()
     t0 = time.perf_counter()
     df, meta = runner.run(verbose=False)
     torch.cuda.synchronize()
     fused_wall = time.perf_counter() - t0
-    fused_launches = cuda_duplex.launches
-    assert fused_launches > 0, "the fused run never launched the duplex kernel"
+    fused_counts = main_path_counts(cuda_duplex, "fused")
     queries = int(df["model_cost"].max()) + (land.cost - cost_before)
     check_run_frame(df, 10, 100, 2000, start, per_round=100)
     truth = land.get_fitness(df["sequence"].tolist())
@@ -242,7 +260,7 @@ def main() -> int:
     fused_top = float(df["true_score"].max())
     print(f"fused: wall {fused_wall} s, {queries / fused_wall} queries/s "
           f"(model + landscape), top true_score {fused_top}, "
-          f"kernel launches {fused_launches}, rows {len(df)}")
+          f"kernel launches {fused_counts}, rows {len(df)}")
 
     # 4. Host path.
     host_land = rna.RNABinding(**problem["params"])
@@ -251,31 +269,72 @@ def main() -> int:
         model, rounds=3, sequences_batch_size=100, model_queries_per_batch=2000,
         starting_sequence=start, alphabet=flexs.RNAA, seed=0,
     )
-    cuda_duplex.launches = 0
+    cuda_duplex.reset_launch_counts()
     t0 = time.perf_counter()
     df_host, _ = explorer.run(host_land, verbose=False)
     torch.cuda.synchronize()
     host_wall = time.perf_counter() - t0
-    host_launches = cuda_duplex.launches
-    assert host_launches > 0, "the host run never launched the duplex kernel"
+    host_counts = main_path_counts(cuda_duplex, "host")
     check_run_frame(df_host, 3, 100, 2000, start, per_round=99)
     host_top = float(df_host["true_score"].max())
     print(f"host: wall {host_wall} s, top true_score {host_top}, "
-          f"kernel launches {host_launches}, rows {len(df_host)}")
+          f"kernel launches {host_counts}, rows {len(df_host)}")
 
-    # 5. Report: the main path's shape (B=100) at the top level, B=512 beside it.
+    # 5. Row-cost knockouts: the profiler's run, check and timing of every
+    # build on its seeded inputs.
+    for v in knockouts:
+        print_build(v, *knockout_builds[v].result())
+    build_pool.shutdown()
+    cuda_duplex.reset_launch_counts()
+    rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
+    torch.cuda.synchronize()
+    rc_counts = cuda_duplex.launch_counts()
+    silent = [v for v, n in rc_counts.items() if n == 0]
+    assert not silent, f"the row-cost path never launched {silent}"
+    rc_entries = {v: {} for v in cuda_duplex.VARIANTS}
+    for b, batch in rc.items():
+        bound = bound_entry(batch["n_bytes"], batch["dims"])
+        for v, reading in batch["variants"].items():
+            entry = {**reading, "plain_ms": batch["plain_ms"], **bound}
+            rc_entries[v][b] = entry
+            print(f"row-cost {v} B={b}: {entry['ms']} ms, {entry['us_per_row']} us/row, "
+                  f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
+                  f"({entry['bound_by']}), equal to baseline {entry['equal_to_baseline']}, "
+                  f"max |diff| vs plain {entry['max_abs_err']}")
+    print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} == plain (bitwise) at "
+          f"B={tuple(rc)}; launches {rc_counts}")
+
+    # 6. Report: the main path's shape (B=100) at the top level, B=512 beside it.
     kernels = [{
         "name": "duplex_dp",
         "route": "cuda",
         "source": "flexs_tpu_torch/csrc/duplex_dp.cu",
         "replaces": "flexs_tpu/ops/pallas_duplex.py:374",
-        "launches": fused_launches,
-        "host_launches": host_launches,
+        "launches": fused_counts["baseline"],
+        "host_launches": host_counts["baseline"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,
         "at_B512": timings[512],
     }]
+    # The row-cost builds: the profiler's B=4096 at the top level, B=100
+    # beside it; `launches` counts the row-cost phase, `fused_launches` the
+    # fused run.
+    for v in cuda_duplex.VARIANTS:
+        exact = v in cuda_duplex.EXACT_VARIANTS
+        kernels.append({
+            "name": f"duplex_rowcost_{v.replace('-', '_')}",
+            "route": "cuda",
+            "source": "flexs_tpu_torch/csrc/duplex_dp.cu",
+            "replaces": "scripts/profile_duplex_rowcost.py:206",
+            "launches": rc_counts[v],
+            "fused_launches": fused_counts[v],
+            "knockout": v != "baseline",
+            "tolerance": "bitwise" if exact else "finite only (wrong by design)",
+            **rc_entries[v][rowcost.BATCH],
+            "library_ms": None,
+            "at_B100": rc_entries[v][rowcost.MAIN_PATH_BATCH],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,11 @@ matches bit for bit.
 The kernel is compiled with nvcc for sm_90a on first use, from the source
 in this package, into `flexs_tpu_torch/_build/` (cached by the hash of the
 source and flags), and bound with ctypes.  Nothing is built on import.
+
+The same source builds the row-cost knockouts of `VARIANTS` (see the
+source's DUPLEX_VARIANT), each into its own library, for
+`flexs_tpu_torch.profile_duplex_rowcost`.  The main path only ever loads
+"baseline", whose flags are `NVCC_FLAGS` with no define.
 The wrapper prepares the gram indices and the duplex-end patches with
 torch ops, as the TPU wrapper prepares its records outside its kernel.
 """
@@ -33,7 +38,18 @@ NVCC_FLAGS = [
 ]
 _MAX_L2 = 1024  # one thread per target column
 
-_lib = None
+# Row-cost knockout builds, in the order of scripts/profile_duplex_rowcost.py,
+# and their DUPLEX_VARIANT numbers.  "unrolled" and "carry-windows" are
+# compiled for one shape, the profiler's L1 and maxloop.
+VARIANTS = ("baseline", "const-rec", "carry-windows", "unrolled")
+_VARIANT_ID = {"baseline": 0, "const-rec": 1, "unrolled": 2, "carry-windows": 3}
+# The builds that compute the DP itself, bit for bit; the others are wrong
+# by design and serve for timing only.
+EXACT_VARIANTS = ("baseline", "unrolled")
+STATIC_L1, STATIC_MAXLOOP = 100, 16
+_STATIC_SHAPE = ("unrolled", "carry-windows")
+
+_libs = {}
 _lib_lock = threading.Lock()
 
 
@@ -46,18 +62,52 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Tuple[str, str]:
-    """Compile the kernel library if needed; return (path, compiler log)."""
+def _variant_id(variant: str) -> int:
+    if variant not in _VARIANT_ID:
+        raise ValueError(f"unknown duplex kernel variant {variant!r}; one of {VARIANTS}")
+    return _VARIANT_ID[variant]
+
+
+def check_variant(variant: str, l1: int, maxloop: int) -> None:
+    """Raise ValueError for an unknown variant, or a shape its build cannot take."""
+    _variant_id(variant)
+    if variant in _STATIC_SHAPE and (l1, maxloop) != (STATIC_L1, STATIC_MAXLOOP):
+        raise ValueError(
+            f"the {variant!r} build is compiled for L1={STATIC_L1}, "
+            f"maxloop={STATIC_MAXLOOP}; got L1={l1}, maxloop={maxloop}"
+        )
+
+
+def nvcc_flags(variant: str = "baseline") -> list:
+    """nvcc flags of a variant's build: NVCC_FLAGS plus its defines."""
+    number = _variant_id(variant)
+    if number == 0:
+        return list(NVCC_FLAGS)
+    defines = [f"-DDUPLEX_VARIANT={number}"]
+    if variant in _STATIC_SHAPE:
+        defines += [f"-DDUPLEX_L1={STATIC_L1}", f"-DDUPLEX_MAXLOOP={STATIC_MAXLOOP}"]
+    return NVCC_FLAGS + defines
+
+
+def library_path(variant: str = "baseline") -> str:
+    """Where a variant's library is built: tagged by the source and its flags."""
+    flags = nvcc_flags(variant)
     with open(SOURCE, "rb") as f:
         src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libduplex_dp_{tag}.so")
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    name = "duplex_dp" if variant == "baseline" else f"duplex_dp_{variant.replace('-', '_')}"
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def build(variant: str = "baseline") -> Tuple[str, str]:
+    """Compile a variant's kernel library if needed; return (path, compiler log)."""
+    lib_path = library_path(variant)
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+        [_nvcc(), *nvcc_flags(variant), "-o", tmp, SOURCE], capture_output=True, text=True
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
@@ -65,16 +115,15 @@ def build() -> Tuple[str, str]:
     return lib_path, proc.stdout + proc.stderr
 
 
-def _load():
-    global _lib
+def _load(variant: str):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()[0])
+        if variant not in _libs:
+            lib = ctypes.CDLL(build(variant)[0])
             fn = lib.duplex_dp_launch
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _libs[variant] = lib
+    return _libs[variant]
 
 
 def _check_maxloop(maxloop: int) -> None:
@@ -108,7 +157,22 @@ def duplex_energies(tokens, targets_rev, em, maxloop: int):
     return launch(*prepare(tokens, targets_rev, em, maxloop))
 
 
-launches = 0  # kernel launches; `launch` adds one per launch
+launches = 0  # baseline kernel launches; `launch` adds one per launch
+# Launches of each knockout build, counted the same way.
+knockout_launches = {v: 0 for v in VARIANTS if v != "baseline"}
+
+
+def reset_launch_counts() -> None:
+    """Set the launch count of every build to 0."""
+    global launches
+    launches = 0
+    for v in knockout_launches:
+        knockout_launches[v] = 0
+
+
+def launch_counts() -> dict:
+    """Launches of each build since the last reset, by variant name."""
+    return {"baseline": launches, **knockout_launches}
 
 
 def prepare(tokens, targets_rev, em, maxloop: int):
@@ -164,18 +228,29 @@ def prepare(tokens, targets_rev, em, maxloop: int):
     return args, (b, n_t, l1, l2, maxloop)
 
 
-def launch(args, dims):
-    """Launch the kernel on the current stream; returns the output tensor."""
+def launch(args, dims, variant: str = "baseline"):
+    """Launch a variant's kernel on the current stream; returns the output tensor.
+
+    `args, dims` come from `prepare`.  An unknown variant, or dims that a
+    compile-time build does not take, raise ValueError before anything is
+    built or launched.
+    """
     global launches
+    check_variant(variant, dims[2], dims[4])
     out = args[-1]
     if dims[0] == 0:
         return out
-    lib = _load()
+    lib = _load(variant)
     dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.duplex_dp_launch(*[a.data_ptr() for a in args], *dims, stream)
+        err = lib.duplex_dp_launch(
+            *[a.data_ptr() for a in args], *dims, _VARIANT_ID[variant], stream
+        )
     if err != 0:
-        raise RuntimeError(f"duplex_dp kernel launch failed with CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"duplex_dp ({variant}) kernel launch failed with CUDA error {err}")
+    if variant == "baseline":
+        launches += 1
+    else:
+        knockout_launches[variant] += 1
     return out

@@ -24,6 +24,13 @@ min-plus recursion as a Python loop over rows, batched over sequences.
 
 This is the plain version of the CUDA kernel in `ops/cuda_duplex.py`: the
 kernel is held to it bit for bit, and the CPU tests run it.
+
+`_duplex_dp` is the other form of the same recursion, as the JAX package's
+`_duplex_dp`: per-cell index gathers inside the row loop, with JAX's
+association (e.g. `(prev + bulge1) + stack`, where the slab path adds
+`prev + (bulge1 + stack)`), so the two forms agree to rounding, not bitwise.
+It is a reference, the CPU side of `make_duplex_fitness_fn` and a row of
+`profile_duplex`; no path runs it on a card.
 """
 import os
 
@@ -430,6 +437,92 @@ def _shift(x, k):
     return torch.cat([fill, x[..., : n - k]], dim=-1) if k < n else fill
 
 
+def _duplex_dp_batch(seq_tokens, target_rev_tokens, em, maxloop: int):
+    """Min duplex energies f32[B] of int[B, L1] sequences vs one reversed target.
+
+    The gather form: JAX's `_duplex_dp` with its batch axis written out
+    (JAX vmaps it).  Each row gathers its pair types and table entries per
+    cell; the adds keep JAX's association and order.
+    """
+    duplex_init, terminal_au, bulge1 = em["consts"][0], em["consts"][1], em["consts"][2]
+    d = maxloop + 2
+    s = seq_tokens.long()
+    b, l1 = s.shape
+    trev = target_rev_tokens.long()
+    l2 = trev.shape[0]
+    dev = s.device
+    pair_tbl = _pair_table(dev)
+    weak = torch.as_tensor(WEAK_PAIR, device=dev)
+
+    j_idx = torch.arange(l2, device=dev)
+    trev_m1 = torch.roll(trev, 1)  # trev[j-1] (wrapped; masked where used)
+    trev_p1 = torch.roll(trev, -1)  # trev[j+1]
+    b3_open = torch.where(j_idx > 0, trev_m1, NONE_BASE)[None, :]
+    a5_close = torch.where(j_idx < l2 - 1, trev_p1, NONE_BASE)[None, :]
+    trev_m1, trev_p1 = trev_m1[None, :], trev_p1[None, :]
+    none = torch.full((b, 1), NONE_BASE, dtype=torch.int64, device=dev)
+
+    win_c = torch.full((b, d - 1, l2), _INF, dtype=torch.float32, device=dev)
+    win_ca = win_c.clone()
+    win_cw = win_c.clone()
+    best = torch.full((b,), _INF, dtype=torch.float32, device=dev)
+    icost = em["interior_cost"][2:, 2:].T[:, :, None]  # [dj - 2, r - 1, 1]
+
+    for i in range(l1):
+        s_i = s[:, i : i + 1]  # [B, 1]
+        s_im1 = s[:, max(i - 1, 0)][:, None]
+        s_im2 = s[:, max(i - 2, 0)][:, None]
+        s_ip1 = s[:, min(i + 1, l1 - 1)][:, None]
+
+        ptype = pair_tbl[s_i, trev]  # [B, L2]
+        ptype_m1 = pair_tbl[s_im1, trev]
+        ptype_m2 = pair_tbl[s_im2, trev]
+        pairable = ptype > 0
+        au_cur = terminal_au * weak[ptype]
+
+        b5 = s_im1 if i > 0 else none
+        open_e = duplex_init + em["ext5"][ptype, b5, b3_open]
+        stack_e = _shift(win_c[:, 0], 1) + em["stack"][torch.roll(ptype_m1, 1, -1), ptype]
+        b1_seq = (
+            _shift(win_c[:, 1], 1) + bulge1 + em["stack"][torch.roll(ptype_m2, 1, -1), ptype]
+        )
+        b1_tgt = (
+            _shift(win_c[:, 0], 2) + bulge1 + em["stack"][torch.roll(ptype_m1, 2, -1), ptype]
+        )
+        i11 = _shift(win_c[:, 1], 2) + em["int11"][
+            torch.roll(ptype_m2, 2, -1), ptype, s_im1, trev_m1
+        ]
+        rolled = torch.stack([_shift(win_ca[:, 1:], dj) for dj in range(2, d)], 1)
+        loop_e = (rolled + icost).amin(dim=(1, 2)) + em["mB"][ptype, s_im1, trev_m1]
+        blg_seq = (_shift(win_cw, 1) + em["bulge_seq"][:, None]).amin(dim=1) + au_cur
+        blg_tgt = (
+            torch.stack([_shift(win_cw[:, 0], dj) for dj in range(3, d)], 1)
+            + em["bulge_tgt"][3:, None]
+        ).amin(dim=1) + au_cur
+
+        c_row = torch.minimum(
+            torch.minimum(torch.minimum(open_e, stack_e), torch.minimum(b1_seq, b1_tgt)),
+            torch.minimum(torch.minimum(i11, loop_e), torch.minimum(blg_seq, blg_tgt)),
+        )
+        c_row = torch.where(pairable, c_row, _INF)
+
+        a3 = s_ip1 if i < l1 - 1 else none
+        close_e = c_row + em["ext3"][ptype, a3, a5_close]
+        best = torch.minimum(best, close_e.amin(dim=1))
+
+        a_row = em["mA"][ptype, s_ip1, trev_p1]
+        win_c = torch.cat([c_row[:, None], win_c[:, :-1]], 1)
+        win_ca = torch.cat([(c_row + a_row)[:, None], win_ca[:, :-1]], 1)
+        win_cw = torch.cat([(c_row + au_cur)[:, None], win_cw[:, :-1]], 1)
+    # No pairable positions at all => energy 0 (no duplex forms).
+    return torch.where(best >= _INF / 2, 0.0, best)
+
+
+def _duplex_dp(seq_tokens, target_rev_tokens, em, maxloop: int):
+    """Min duplex energy (0-d f32) of one int[L1] sequence vs one reversed target."""
+    return _duplex_dp_batch(seq_tokens[None], target_rev_tokens, em, maxloop)[0]
+
+
 def _duplex_dp_slabs(slabs, interior_cost, bulge_seq, bulge_tgt, maxloop: int):
     """Min duplex energies f32[B] from per-cell slabs f32[B, L1, 9, L2].
 
@@ -491,13 +584,48 @@ def duplex_energy_batch(
     """Duplex energies (kcal/mol) of int[B, L1] sequences vs one target.
 
     `target_tokens` is int[L2] in 5'->3' orientation; it is reversed here so
-    the DP scans both strands in increasing index order.  Runs the plain
-    version on `device` (default "cuda").
+    the DP scans both strands in increasing index order.  Runs on `device`
+    (default "cuda"): on a card the CUDA kernel, on the CPU the plain slab
+    DP, which the kernel equals bit for bit.
     """
     params = params or DEFAULT_PARAMS
     dev = resolve_device(device)
     seq = torch.as_tensor(seq_tokens, device=dev)
     target_rev = torch.as_tensor(target_tokens, device=dev).flip(0)
-    return duplex_energy_from_slabs(
-        seq, target_rev, params.energy_model(dev), params.maxloop
-    )
+    em = params.energy_model(dev)
+    if dev.type == "cuda":
+        from flexs_tpu_torch.ops import cuda_duplex  # it imports this module
+
+        return cuda_duplex.duplex_energies(seq, target_rev[None], em, params.maxloop)[:, 0]
+    return duplex_energy_from_slabs(seq, target_rev, em, params.maxloop)
+
+
+def pack_duplex_params(target_tokens, params: DuplexParams = None, device=None):
+    """(reversed target, energy model) on `device` for `make_duplex_fitness_fn`."""
+    params = params or DEFAULT_PARAMS
+    dev = resolve_device(device)
+    target_rev = torch.as_tensor(target_tokens, dtype=torch.int64, device=dev).flip(0)
+    return target_rev, params.energy_model(dev)
+
+
+def make_duplex_fitness_fn(maxloop: int = 16):
+    """Pure `(params, tokens) -> energies f32[B]`, params from `pack_duplex_params`.
+
+    Params on a card launch the CUDA kernel (one target); params on the CPU
+    run the gather-form `_duplex_dp_batch`.  The card never runs the plain
+    version through this function.
+    """
+
+    def fitness_fn(p, tokens):
+        target_rev, em = p
+        dev = target_rev.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        if dev.type == "cuda":
+            from flexs_tpu_torch.ops import cuda_duplex  # it imports this module
+
+            return cuda_duplex.duplex_energies(tokens, target_rev[None], em, maxloop)[:, 0]
+        if dev.type != "cpu":
+            raise ValueError(f"unsupported device {dev}")
+        return _duplex_dp_batch(tokens, target_rev, em, maxloop)
+
+    return fitness_fn

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from flexs_tpu_torch import profile_duplex_rowcost
 from flexs_tpu_torch.landscapes import rna
 from flexs_tpu_torch.ops import cuda_duplex
 from flexs_tpu_torch.ops import rna_duplex as rd
@@ -85,3 +86,48 @@ def test_landscape_on_card_equals_cpu(card):
     got = on_card.fitness_from_tokens(tokens)
     assert cuda_duplex.launches == before + 1
     assert torch.equal(got.cpu(), on_cpu.fitness_from_tokens(tokens))
+
+
+def test_duplex_energy_batch_launches_the_kernel(card):
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 4, (32, 50))
+    target = rng.integers(0, 4, 60)
+    before = cuda_duplex.launches
+    got = rd.duplex_energy_batch(tokens, target, device=card)
+    assert cuda_duplex.launches == before + 1
+    want = rd.duplex_energy_batch(tokens, target, device="cpu")
+    assert got.shape == (32,) and got.device == card
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,l1,l2", [(64, 100, 100), (7, 37, 37)])
+def test_rowcost_baseline_equals_plain(card, b, l1, l2):
+    rng = np.random.default_rng(b + l1)
+    em = rd.DuplexParams.calibrated().energy_model(card)
+    tokens = _tokens(rng, (b, l1), card)
+    target_rev = _tokens(rng, (l2,), card)
+    before = cuda_duplex.launches
+    got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, 16, "baseline")
+    assert cuda_duplex.launches == before + 1
+    want = cuda_duplex.duplex_energies_plain(tokens, target_rev[None], em, 16)[:, 0]
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_rowcost_unrolled_equals_plain(card):
+    tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
+    tokens = tokens[:128]
+    got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, "unrolled")
+    want = cuda_duplex.duplex_energies_plain(tokens, target_rev[None], em, maxloop)[:, 0]
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("variant", ["const-rec", "carry-windows", "unrolled"])
+def test_rowcost_knockout_returns_finite_energies(card, variant):
+    tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
+    tokens = tokens[:128]
+    before = cuda_duplex.knockout_launches[variant]
+    got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, variant)
+    torch.cuda.synchronize()
+    assert cuda_duplex.knockout_launches[variant] == before + 1
+    assert got.shape == (128,) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
