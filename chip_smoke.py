@@ -4,29 +4,35 @@
     python3 chip_smoke.py
 
 Phases (any failed check raises, and the script exits nonzero):
-  1. build the CUDA duplex kernel (flexs_tpu_torch/csrc/duplex_dp.cu) from
-     this checkout with nvcc, and start the builds of its three row-cost
-     knockouts beside it (one nvcc each, in threads);
+  1. build, from this checkout, the main path's CUDA duplex kernel
+     (flexs_tpu_torch/csrc/duplex_dp.cu) and the four row-cost builds of
+     the first kernel (csrc/duplex_rowcost.cu): five nvcc runs, all started
+     together in threads;
   2. hold the kernel against its plain PyTorch version on the card, on
-     numpy-seeded inputs at the main path's shapes and a few edge cases,
-     requiring bitwise equality, and time both with CUDA events;
+     numpy-seeded inputs at the main path's shapes (B = 100, 512, 4096),
+     maxloop 7 and a few edge cases, requiring bitwise
+     equality; time the kernel on a per-landscape plan at B = 100, 512 and
+     4096, its wrapper at B = 100 and 512 and the plain version, with CUDA
+     events, and print the card's SM clock and power draw;
   3. run the fused main path: DeviceAdaleadNAM on RNABinding L100_RNA1
      (10 rounds x 100 proposals x 2000 model queries, NAM at signal
-     strength 0.9) and check the run's invariants;
+     strength 0.9), check the run's invariants, 439 launches of the main
+     path's kernel and top true_score 0.667402;
   4. run the host path: Adalead + NoisyAbstractModel on the same landscape
-     for 3 rounds;
+     for 3 rounds: 112 launches, top true_score 0.619458;
   5. row-cost knockouts: the path of `python -m
-     flexs_tpu_torch.profile_duplex_rowcost`.  Wait for the knockout builds,
-     then `profile_duplex_rowcost.measure` runs every variant on the
-     profiler's seeded inputs at B=4096 and B=100, requires baseline and
-     unrolled to equal the plain version bitwise and const-rec and
-     carry-windows (wrong by design) to give finite f32[B], and times each;
+     flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
+     measure` runs every build on the profiler's seeded inputs at B=4096
+     and B=100, requires baseline and unrolled (and the redesigned kernel,
+     timed beside them) to equal the plain version bitwise and const-rec
+     and carry-windows (wrong by design) to give finite f32[B], and times
+     each;
   6. print one JSON line describing each kernel, the card's name and power
      limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
 it and reads them just after; a phase in which one of its kernels never
-launched fails, and so does a main-path run that launched a knockout
+launched fails, and so does a main-path run that launched a row-cost
 build.  The script needs one CUDA card and imports nothing of JAX.
 """
 import json
@@ -43,6 +49,10 @@ SEED = 0
 # and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The main path's seeded runs: kernel launches and top true_score, as the
+# first kernel gave them; bitwise-equal energies must reproduce them.
+FUSED_LAUNCHES, FUSED_TOP = 439, 0.667402
+HOST_LAUNCHES, HOST_TOP = 112, 0.619458
 
 
 def card_line() -> str:
@@ -98,12 +108,14 @@ def bound_entry(n_bytes: int, dims) -> dict:
             "operations": ops}
 
 
-def main_path_counts(cuda_duplex, path: str) -> dict:
-    """Launch counts of a main path's run: the baseline build only, at least once."""
+def main_path_counts(cuda_duplex, path: str, expected: int) -> dict:
+    """Launch counts of a main path's run: `expected` of the main kernel, no row-cost build."""
     counts = cuda_duplex.launch_counts()
-    assert counts["baseline"] > 0, f"the {path} run never launched the duplex kernel"
-    stray = {v: n for v, n in counts.items() if v != "baseline" and n}
-    assert not stray, f"the {path} run launched knockout builds: {stray}"
+    assert counts[cuda_duplex.MAIN] == expected, (
+        f"the {path} run launched the duplex kernel {counts[cuda_duplex.MAIN]} times, "
+        f"expected {expected}")
+    stray = {v: n for v, n in counts.items() if v != cuda_duplex.MAIN and n}
+    assert not stray, f"the {path} run launched row-cost builds: {stray}"
     return counts
 
 
@@ -119,15 +131,18 @@ def kernel_vs_plain(cuda_duplex, tokens, targets_rev, em, maxloop):
         raise AssertionError("duplex_energies did not launch the kernel once")
     plain = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop)
     torch.cuda.synchronize()
+    return kern, plain, check_equal(kern, plain, f"B={tokens.shape[0]} L1={tokens.shape[1]} "
+                                                 f"T={targets_rev.shape[0]} maxloop={maxloop}")
+
+
+def check_equal(kern, plain, case: str) -> float:
+    """max |kern - plain|; raises unless the two are equal, finite and of one shape."""
     if kern.shape != plain.shape or not torch.isfinite(kern).all():
-        raise AssertionError(f"kernel output {tuple(kern.shape)} is not finite/shaped")
+        raise AssertionError(f"kernel output {tuple(kern.shape)} is not finite/shaped ({case})")
     diff = float((kern - plain).abs().max())
     if not torch.equal(kern, plain):
-        raise AssertionError(
-            f"kernel != plain at B={tokens.shape[0]} L1={tokens.shape[1]} "
-            f"T={targets_rev.shape[0]}: max |diff| {diff}"
-        )
-    return kern, plain, diff
+        raise AssertionError(f"kernel != plain at {case}: max |diff| {diff}")
+    return diff
 
 
 def check_run_frame(df, rounds: int, batch: int, budget: int, start: str, per_round: int):
@@ -148,6 +163,14 @@ def check_run_frame(df, rounds: int, batch: int, budget: int, start: str, per_ro
     assert np.isfinite(df["true_score"]).all()
 
 
+def clock_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
@@ -158,6 +181,7 @@ def main() -> int:
     from flexs_tpu_torch import profile_duplex_rowcost as rowcost
     from flexs_tpu_torch.landscapes import rna
     from flexs_tpu_torch.ops import cuda_duplex
+    from flexs_tpu_torch.ops import rna_duplex as rd
     from flexs_tpu_torch.profile_duplex_rowcost import time_ms
 
     card = card_line()
@@ -167,16 +191,19 @@ def main() -> int:
     problem = reg["L100_RNA1"]
     start = problem["starts"][1]
 
-    # 1. Build: the knockouts in threads, the main path's kernel meanwhile.
-    knockouts = [v for v in cuda_duplex.VARIANTS if v != "baseline"]
-    build_pool = ThreadPoolExecutor(max_workers=len(knockouts))
-    knockout_builds = {v: build_pool.submit(timed_build, cuda_duplex, v) for v in knockouts}
-    print_build("baseline", *timed_build(cuda_duplex, "baseline"))
+    # 1. Build every library at once, one nvcc each.
+    builds = (cuda_duplex.MAIN,) + cuda_duplex.VARIANTS
+    build_pool = ThreadPoolExecutor(max_workers=len(builds))
+    pending = {v: build_pool.submit(timed_build, cuda_duplex, v) for v in builds}
+    for v in builds:
+        print_build(v, *pending[v].result())
+    build_pool.shutdown()
     print(f"card: {card}")
 
     # 2. Kernel vs plain version on the card.
     land = rna.RNABinding(**problem["params"])
-    targets_rev, em, _, _ = land.device_fitness()[1]
+    plan = land.device_fitness()[1].plan
+    targets_rev, em = plan.targets_rev, plan.em
     maxloop = land.params.maxloop
     cases = []
     max_diff = 0.0
@@ -184,13 +211,13 @@ def main() -> int:
     def random_tokens(b, l1):
         return torch.as_tensor(rng.integers(0, 4, (b, l1)), device="cuda")
 
-    for b, l1 in [(100, 100), (512, 100), (64, 50), (64, 14)]:
+    for b, l1 in [(100, 100), (512, 100), (4096, 100), (64, 50), (64, 14)]:
         _, _, diff = kernel_vs_plain(cuda_duplex, random_tokens(b, l1), targets_rev, em, maxloop)
         max_diff = max(max_diff, diff)
         cases.append(f"B={b},L1={l1},T=1")
     two = rna.RNABinding(**reg["L100_RNA1+2"]["params"])
     _, _, diff = kernel_vs_plain(
-        cuda_duplex, random_tokens(100, 100), two.device_fitness()[1][0], em, maxloop
+        cuda_duplex, random_tokens(100, 100), two.device_fitness()[1].plan.targets_rev, em, maxloop
     )
     max_diff = max(max_diff, diff)
     cases.append("B=100,L1=100,T=2")
@@ -202,6 +229,15 @@ def main() -> int:
     assert float(kern[0, 0]) == 0.0, "an unpairable row must score 0"
     max_diff = max(max_diff, diff)
     cases.append("unpairable all-A row")
+    em7 = rd.DuplexParams(maxloop=7).energy_model("cuda")
+    _, _, diff = kernel_vs_plain(cuda_duplex, random_tokens(100, 100), targets_rev, em7, 7)
+    max_diff = max(max_diff, diff)
+    cases.append("B=100,L1=100,T=1,maxloop=7")
+    # A short target: one warp per block.
+    _, _, diff = kernel_vs_plain(cuda_duplex, random_tokens(100, 100), random_tokens(2, 32),
+                                 em, maxloop)
+    max_diff = max(max_diff, diff)
+    cases.append("B=100,L1=100,T=2,L2=32")
     # Landscape level: conserved-region zeroing and the two-target mean,
     # kernel on the card vs the plain version on the CPU.
     c20 = reg["C20_L100_RNA1+2"]["params"]
@@ -215,29 +251,31 @@ def main() -> int:
     cases.append("C20_L100_RNA1+2 landscape, card vs CPU")
     print(f"kernel == plain (bitwise) on: {'; '.join(cases)}")
 
-    # Timing at the main path's shape (B=100) and a wider batch (B=512).
-    # The kernel alone is timed on prepared arguments; the wrapper's time
-    # adds its torch prep.
+    # Timing: the kernel alone on the landscape's plan, the wrapper the main
+    # path calls (checks, output, launch), and the plain version.
     reps, inner = rowcost.TIMING_REPS, rowcost.TIMING_INNER
     timings = {}
-    for b in (100, 512):
+    for b in (100, 512, 4096):
         tokens = random_tokens(b, 100)
-        args, dims = cuda_duplex.prepare(tokens, targets_rev, em, maxloop)
         entry = {
-            "ms": time_ms(lambda: cuda_duplex.launch(args, dims), reps, inner),
+            "ms": time_ms(lambda: cuda_duplex.launch_plan(plan, tokens), reps, inner),
+            "sm_clock_power_after": clock_line(),
             "plain_ms": time_ms(
                 lambda: cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop),
                 reps, 1),
-            **bound_entry(sum(a.numel() * a.element_size() for a in args), dims),
-            "wrapper_ms": time_ms(
-                lambda: cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop),
-                reps, inner),
+            **bound_entry(rowcost.plan_bytes(plan, tokens), (b, 1, 100, 100, maxloop)),
         }
+        if b in (100, 512):
+            entry["wrapper_ms"] = time_ms(
+                lambda: cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop, plan=plan),
+                reps, inner)
         timings[b] = entry
-        print(f"timing B={b}, T=1, L1=L2=100: kernel {entry['ms']} ms, "
-              f"wrapper {entry['wrapper_ms']} ms, plain {entry['plain_ms']} ms, "
-              f"bound {entry['bound_ms']} ms ({entry['bound_by']}; "
-              f"{entry['n_bytes']} bytes, {entry['operations']} operations)")
+        print(f"timing B={b}, T=1, L1=L2=100: kernel {entry['ms']} ms "
+              f"(SM clock, power after: "
+              f"{entry['sm_clock_power_after']}), wrapper {entry.get('wrapper_ms')} ms, "
+              f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
+              f"({entry['bound_by']}; {entry['n_bytes']} bytes, "
+              f"{entry['operations']} operations)")
 
     # 3. Fused main path at full width.
     runner = flexs.runtime.DeviceAdaleadNAM(
@@ -251,13 +289,14 @@ def main() -> int:
     df, meta = runner.run(verbose=False)
     torch.cuda.synchronize()
     fused_wall = time.perf_counter() - t0
-    fused_counts = main_path_counts(cuda_duplex, "fused")
+    fused_counts = main_path_counts(cuda_duplex, "fused", FUSED_LAUNCHES)
     queries = int(df["model_cost"].max()) + (land.cost - cost_before)
     check_run_frame(df, 10, 100, 2000, start, per_round=100)
     truth = land.get_fitness(df["sequence"].tolist())
     truth_diff = float(np.abs(df["true_score"].to_numpy() - truth).max())
     assert truth_diff <= 1e-6, truth_diff
     fused_top = float(df["true_score"].max())
+    assert round(fused_top, 6) == FUSED_TOP, fused_top
     print(f"fused: wall {fused_wall} s, {queries / fused_wall} queries/s "
           f"(model + landscape), top true_score {fused_top}, "
           f"kernel launches {fused_counts}, rows {len(df)}")
@@ -274,23 +313,24 @@ def main() -> int:
     df_host, _ = explorer.run(host_land, verbose=False)
     torch.cuda.synchronize()
     host_wall = time.perf_counter() - t0
-    host_counts = main_path_counts(cuda_duplex, "host")
+    host_counts = main_path_counts(cuda_duplex, "host", HOST_LAUNCHES)
     check_run_frame(df_host, 3, 100, 2000, start, per_round=99)
+    host_truth = host_land.get_fitness(df_host["sequence"].tolist())
+    assert float(np.abs(df_host["true_score"].to_numpy() - host_truth).max()) <= 1e-6
     host_top = float(df_host["true_score"].max())
+    assert round(host_top, 6) == HOST_TOP, host_top
     print(f"host: wall {host_wall} s, top true_score {host_top}, "
           f"kernel launches {host_counts}, rows {len(df_host)}")
 
-    # 5. Row-cost knockouts: the profiler's run, check and timing of every
-    # build on its seeded inputs.
-    for v in knockouts:
-        print_build(v, *knockout_builds[v].result())
-    build_pool.shutdown()
+    # 5. Row-cost builds: the profiler's run, check and timing of every
+    # build on its seeded inputs, with the redesigned kernel beside them.
     cuda_duplex.reset_launch_counts()
     rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
     torch.cuda.synchronize()
     rc_counts = cuda_duplex.launch_counts()
     silent = [v for v, n in rc_counts.items() if n == 0]
     assert not silent, f"the row-cost path never launched {silent}"
+    print(f"row-cost phase, SM clock and power after: {clock_line()}")
     rc_entries = {v: {} for v in cuda_duplex.VARIANTS}
     for b, batch in rc.items():
         bound = bound_entry(batch["n_bytes"], batch["dims"])
@@ -301,21 +341,27 @@ def main() -> int:
                   f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
                   f"({entry['bound_by']}), equal to baseline {entry['equal_to_baseline']}, "
                   f"max |diff| vs plain {entry['max_abs_err']}")
-    print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} == plain (bitwise) at "
+        r = batch["redesign"]
+        print(f"row-cost phase duplex_dp B={b}: {r['ms']} ms, {r['us_per_row']} us/row, "
+              f"max |diff| vs plain {r['max_abs_err']}")
+    print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} and duplex_dp == plain (bitwise) at "
           f"B={tuple(rc)}; launches {rc_counts}")
 
-    # 6. Report: the main path's shape (B=100) at the top level, B=512 beside it.
+    # 6. Report: the main path's shape (B=100) at the top level, B=512 and
+    # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
         "route": "cuda",
         "source": "flexs_tpu_torch/csrc/duplex_dp.cu",
         "replaces": "flexs_tpu/ops/pallas_duplex.py:374",
-        "launches": fused_counts["baseline"],
-        "host_launches": host_counts["baseline"],
+        "launches": fused_counts[cuda_duplex.MAIN],
+        "host_launches": host_counts[cuda_duplex.MAIN],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,
         "at_B512": timings[512],
+        "at_B4096": timings[4096],
+        "rowcost_phase": {b: batch["redesign"] for b, batch in rc.items()},
     }]
     # The row-cost builds: the profiler's B=4096 at the top level, B=100
     # beside it; `launches` counts the row-cost phase, `fused_launches` the
@@ -325,7 +371,7 @@ def main() -> int:
         kernels.append({
             "name": f"duplex_rowcost_{v.replace('-', '_')}",
             "route": "cuda",
-            "source": "flexs_tpu_torch/csrc/duplex_dp.cu",
+            "source": "flexs_tpu_torch/csrc/duplex_rowcost.cu",
             "replaces": "scripts/profile_duplex_rowcost.py:206",
             "launches": rc_counts[v],
             "fused_launches": fused_counts[v],

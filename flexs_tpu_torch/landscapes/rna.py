@@ -13,10 +13,14 @@ Contract (reference flexs/landscapes/rna.py):
 
 The oracle is `ops.cuda_duplex.duplex_energies`: on a CUDA landscape the
 hand-written kernel scores a whole batch against every target in one
-launch; on a CPU landscape the plain PyTorch DP does.  `device_fitness()`
-exposes the pure `(params, tokens)` form for the fused runner.
+launch; on a CPU landscape the plain PyTorch DP does.  The landscape
+makes the kernel's per-landscape plan (`cuda_duplex.make_plan`) once, so a
+call only launches.  `device_fitness()` exposes the pure
+`(params, tokens)` form for the fused runner; its params are an
+`RNAFitnessParams` (the plan, which holds the targets and the energy
+model, the norms and the conserved pattern).
 """
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,17 +35,24 @@ _RNA = Alphabet(RNAA)
 _COMPLEMENTS = {"A": "U", "C": "G", "G": "C", "U": "A"}
 
 
-def _rna_binding_fitness(params, tokens):
-    """Pure fitness f32[B]: mean over targets of normalized duplex energy.
+class RNAFitnessParams(NamedTuple):
+    """What `_rna_binding_fitness` reads, on the landscape's device."""
 
-    params = (targets_rev int64[T, L2], energy-model dict, norms f32[T],
-              conserved_pattern int64[L1] (-1 where unconstrained)).
-    """
-    targets_rev, em, norms, conserved = params
-    maxloop = em["interior_cost"].shape[0] - 2
-    energies = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop)
+    plan: cuda_duplex.DuplexPlan  # the targets, the energy model, the kernel's inputs
+    norms: torch.Tensor  # f32[T]
+    conserved: torch.Tensor  # int64[L1], -1 where unconstrained
+
+
+def _rna_binding_fitness(params: RNAFitnessParams, tokens):
+    """Pure fitness f32[B]: mean over targets of normalized duplex energy."""
+    plan = params.plan
+    energies = cuda_duplex.duplex_energies(
+        tokens, plan.targets_rev, plan.em, plan.maxloop, plan=plan
+    )
     # Sum then divide by T, as a mean over the target axis is computed in f32.
+    norms = params.norms
     fit = (energies / norms).sum(dim=1) / norms.shape[0]
+    conserved = params.conserved
     ok = ((conserved < 0) | (tokens == conserved[None, :])).all(dim=1)
     return torch.where(ok, fit, 0.0)
 
@@ -82,37 +93,40 @@ class RNABinding(Landscape):
         self.params = params or rna_duplex.DuplexParams.calibrated()
         self._em = self.params.energy_model(self.device)
 
+        target_rev = np.stack([_RNA.encode_one(t)[::-1] for t in targets])
+        self._plan = cuda_duplex.make_plan(
+            torch.as_tensor(target_rev, dtype=torch.int64, device=self.device),
+            self._em,
+            self.params.maxloop,
+        )
         self.norm_values = self.compute_min_binding_energies()
 
-        target_rev = np.stack([_RNA.encode_one(t)[::-1] for t in targets])
         conserved = np.full(seq_length, -1, np.int64)
         if conserved_region is not None:
             start = conserved_region["start"]
             pattern = _RNA.encode_one(conserved_region["pattern"])
             conserved[start : start + len(pattern)] = pattern
-        self._fitness_params = (
-            torch.as_tensor(target_rev, dtype=torch.int64, device=self.device),
-            self._em,
+        self._fitness_params = RNAFitnessParams(
+            self._plan,
             torch.as_tensor(self.norm_values, dtype=torch.float32, device=self.device),
             torch.as_tensor(conserved, device=self.device),
         )
 
     def compute_min_binding_energies(self) -> np.ndarray:
-        """Lowest possible binding energy per target (perfect complement)."""
-        energies = []
-        for target in self.targets:
-            complement = "".join(_COMPLEMENTS[x] for x in target)[::-1]
-            tokens = torch.as_tensor(_RNA.encode([complement]), device=self.device)
-            target_rev = torch.as_tensor(
-                _RNA.encode_one(target)[::-1].copy(), device=self.device
-            )
-            e = float(
-                cuda_duplex.duplex_energies(
-                    tokens, target_rev[None], self._em, self.params.maxloop
-                )[0, 0]
-            )
-            energies.append(e * self.seq_length / len(target))
-        return np.array(energies)
+        """Lowest possible binding energy per target (perfect complement).
+
+        Each target's complement is scored against every target in one
+        call; the diagonal is each complement against its own target.
+        """
+        complements = ["".join(_COMPLEMENTS[x] for x in t)[::-1] for t in self.targets]
+        tokens = torch.as_tensor(_RNA.encode(complements), device=self.device)
+        plan = self._plan
+        energies = cuda_duplex.duplex_energies(
+            tokens, plan.targets_rev, plan.em, plan.maxloop, plan=plan
+        )
+        own = energies.diagonal().cpu().numpy().astype(np.float64)
+        lengths = np.array([len(t) for t in self.targets], np.float64)
+        return own * self.seq_length / lengths
 
     def fitness_from_tokens(self, tokens) -> torch.Tensor:
         """f32[B] fitness of int[B, L] RNA tokens, on the landscape's device."""
@@ -123,7 +137,8 @@ class RNABinding(Landscape):
         """(pure fitness fn, params) pair for the fused runner.
 
         The fn routes CUDA tensors to the kernel and CPU tensors to the
-        plain version (`ops.cuda_duplex.duplex_energies`).
+        plain version (`ops.cuda_duplex.duplex_energies`); the params are an
+        `RNAFitnessParams`; `params.plan` holds the targets and energy model.
         """
         return _rna_binding_fitness, self._fitness_params
 

@@ -6,16 +6,20 @@ and returns f32[B, T].  A CUDA tensor goes to the kernel (or raises); a CPU
 tensor goes to the plain version, `duplex_energies_plain`, which the kernel
 matches bit for bit.
 
+What depends only on the targets and the energy model (gram-pair tables,
+target grams, duplex-end patch tables, the size costs) is a `DuplexPlan`,
+made once per landscape by `make_plan`.  With a plan, a call on the card
+checks its arguments without a host sync, allocates the output and
+launches once; the kernel builds each sequence's records itself.
+
 The kernel is compiled with nvcc for sm_90a on first use, from the source
-in this package, into `flexs_tpu_torch/_build/` (cached by the hash of the
+in this package, into `flexs_tpu_torch/_build/` (tagged by the hash of the
 source and flags), and bound with ctypes.  Nothing is built on import.
 
-The same source builds the row-cost knockouts of `VARIANTS` (see the
-source's DUPLEX_VARIANT), each into its own library, for
-`flexs_tpu_torch.profile_duplex_rowcost`.  The main path only ever loads
-"baseline", whose flags are `NVCC_FLAGS` with no define.
-The wrapper prepares the gram indices and the duplex-end patches with
-torch ops, as the TPU wrapper prepares its records outside its kernel.
+The first kernel and its row-cost knockouts live in
+csrc/duplex_rowcost.cu: the builds of `VARIANTS` (see the source's
+DUPLEX_VARIANT), each its own library, driven by `prepare` and `launch`
+for `flexs_tpu_torch.profile_duplex_rowcost`.  No main path loads them.
 """
 import ctypes
 import hashlib
@@ -23,24 +27,29 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass, field
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from flexs_tpu_torch.ops import rna_duplex as rd
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_dp.cu")
+ROWCOST_SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_rowcost.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _MAX_L2 = 1024  # one thread per target column
+MAIN = "duplex_dp"  # the main path's build, of SOURCE
 
-# Row-cost knockout builds, in the order of scripts/profile_duplex_rowcost.py,
-# and their DUPLEX_VARIANT numbers.  "unrolled" and "carry-windows" are
-# compiled for one shape, the profiler's L1 and maxloop.
+# Row-cost knockout builds of ROWCOST_SOURCE, in the order of
+# scripts/profile_duplex_rowcost.py, and their DUPLEX_VARIANT numbers.
+# "unrolled" and "carry-windows" are compiled for one shape, the
+# profiler's L1 and maxloop.
 VARIANTS = ("baseline", "const-rec", "carry-windows", "unrolled")
 _VARIANT_ID = {"baseline": 0, "const-rec": 1, "unrolled": 2, "carry-windows": 3}
 # The builds that compute the DP itself, bit for bit; the others are wrong
@@ -78,8 +87,10 @@ def check_variant(variant: str, l1: int, maxloop: int) -> None:
         )
 
 
-def nvcc_flags(variant: str = "baseline") -> list:
-    """nvcc flags of a variant's build: NVCC_FLAGS plus its defines."""
+def nvcc_flags(variant: str = MAIN) -> list:
+    """nvcc flags of a build: NVCC_FLAGS plus a row-cost variant's defines."""
+    if variant == MAIN:
+        return list(NVCC_FLAGS)
     number = _variant_id(variant)
     if number == 0:
         return list(NVCC_FLAGS)
@@ -89,33 +100,41 @@ def nvcc_flags(variant: str = "baseline") -> list:
     return NVCC_FLAGS + defines
 
 
-def library_path(variant: str = "baseline") -> str:
-    """Where a variant's library is built: tagged by the source and its flags."""
+def _source(variant: str) -> str:
+    return SOURCE if variant == MAIN else ROWCOST_SOURCE
+
+
+def library_path(variant: str = MAIN) -> str:
+    """Where a build's library goes: tagged by its source and flags."""
     flags = nvcc_flags(variant)
-    with open(SOURCE, "rb") as f:
+    with open(_source(variant), "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    name = "duplex_dp" if variant == "baseline" else f"duplex_dp_{variant.replace('-', '_')}"
+    name = MAIN if variant == MAIN else f"duplex_rowcost_{variant.replace('-', '_')}"
     return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
-def build(variant: str = "baseline") -> Tuple[str, str]:
-    """Compile a variant's kernel library if needed; return (path, compiler log)."""
+def build(variant: str = MAIN) -> Tuple[str, str]:
+    """Compile a build's kernel library if needed; return (path, compiler log).
+
+    `variant` is MAIN (the main path's kernel) or one of VARIANTS.
+    """
     lib_path = library_path(variant)
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    source = _source(variant)
     proc = subprocess.run(
-        [_nvcc(), *nvcc_flags(variant), "-o", tmp, SOURCE], capture_output=True, text=True
+        [_nvcc(), *nvcc_flags(variant), "-o", tmp, source], capture_output=True, text=True
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path, proc.stdout + proc.stderr
 
 
-def _load(variant: str):
+def _load(variant: str = MAIN):
     with _lib_lock:
         if variant not in _libs:
             lib = ctypes.CDLL(build(variant)[0])
@@ -136,6 +155,15 @@ def _check_maxloop(maxloop: int) -> None:
         )
 
 
+def _check_em(em, maxloop: int) -> None:
+    d = maxloop + 2
+    expected = {"interior_cost": (d, d), "bulge_seq": (d - 1,), "bulge_tgt": (d,)}
+    for name, shape in expected.items():
+        if tuple(em[name].shape) != shape:
+            raise ValueError(f"em[{name!r}] has shape {tuple(em[name].shape)}, "
+                             f"expected {shape} for maxloop={maxloop}")
+
+
 def duplex_energies_plain(tokens, targets_rev, em, maxloop: int):
     """Plain PyTorch version: f32[B, T] from the slab DP, one target at a time."""
     return torch.stack(
@@ -144,39 +172,256 @@ def duplex_energies_plain(tokens, targets_rev, em, maxloop: int):
     )
 
 
-def duplex_energies(tokens, targets_rev, em, maxloop: int):
+# --- The plan: per-landscape inputs of the main path's kernel -------------
+
+
+def cost_struct(d: int):
+    """The ctypes layout of the kernel's by-value size costs for window d.
+
+    Fields in the kernel's order (csrc/duplex_dp.cu, `Costs`): interior_cost
+    f32[d * d], bulge_seq f32[d - 1], bulge_tgt f32[d].
+    """
+    return type(f"DuplexCosts{d}", (ctypes.Structure,), {"_fields_": [
+        ("icost", ctypes.c_float * (d * d)),
+        ("bseq", ctypes.c_float * (d - 1)),
+        ("btgt", ctypes.c_float * d),
+    ]})
+
+
+@dataclass(eq=False)
+class DuplexPlan:
+    """What the kernel needs that depends only on the targets and the energy model.
+
+    Made by `make_plan`; every tensor lives on the targets' device.  The
+    patch tables hold the duplex-end energies that replace the gram tables
+    at the edges, for every base the sequence can put there:
+      open_col0  f32[T, 4, 5]   OPEN of column 0 by (s_i, s_i-1 or NONE)
+      close_coll f32[T, 4, 5]   CLOSE of column L2-1 by (s_i, s_i+1 or NONE)
+      open_row0  f32[T, 4, L2]  OPEN of row 0 by (s_0, column)
+      close_rowl f32[T, 4, L2]  CLOSE of row L1-1 by (s_L1-1, column)
+    At a corner the column's entry wins, as in `rd.boundary_patches`.
+    """
+
+    targets_rev: torch.Tensor
+    em: dict
+    maxloop: int
+    t_past: torch.Tensor  # f32[7, 64, 64]
+    t_fut: torch.Tensor  # f32[2, 16, 16]
+    t3g: torch.Tensor  # int32[T, L2]
+    t2g: torch.Tensor  # int32[T, L2]
+    open_col0: torch.Tensor
+    close_coll: torch.Tensor
+    open_row0: torch.Tensor
+    close_rowl: torch.Tensor
+    interior_cost: torch.Tensor  # f32[d, d]
+    bulge_seq: torch.Tensor  # f32[d - 1]
+    bulge_tgt: torch.Tensor  # f32[d]
+    host_costs: ctypes.Structure  # cost_struct(d), read from the device once
+    _pointers: tuple = field(default=None, init=False, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.t3g.device
+
+    @property
+    def n_targets(self) -> int:
+        return self.t3g.shape[0]
+
+    @property
+    def l2(self) -> int:
+        return self.t3g.shape[1]
+
+    def pointers(self) -> tuple:
+        """The C entry's arguments from t3g to host_costs, as ints."""
+        if self._pointers is None:
+            tensors = (self.t3g, self.t2g, self.open_col0, self.close_coll, self.open_row0,
+                       self.close_rowl, self.t_past, self.t_fut, self.interior_cost,
+                       self.bulge_seq, self.bulge_tgt)
+            self._pointers = tuple(x.data_ptr() for x in tensors) + (
+                ctypes.addressof(self.host_costs),)
+        return self._pointers
+
+
+def _patch_tables(trev, em):
+    """(open_col0 [4, 5], close_coll [4, 5], open_row0 [4, L2], close_rowl [4, L2]).
+
+    The expressions of `rd.boundary_patches`, evaluated for every end base
+    and neighbour instead of one sequence's, so each entry is bitwise the
+    value that function gives.
+    """
+    trev = trev.long()
+    l2 = trev.shape[0]
+    dev = trev.device
+    pair_tbl = rd._pair_table(dev)
+    duplex_init = em["consts"][0]
+    none = rd.NONE_BASE
+    base = torch.arange(4, device=dev)[:, None]  # s_i, or the end base
+    nbr = torch.arange(5, device=dev)[None, :]  # its neighbour; 4 = none
+    j_idx = torch.arange(l2, device=dev)
+    b3 = torch.where(j_idx > 0, torch.roll(trev, 1), none)[None, :]
+    a5 = torch.where(j_idx < l2 - 1, torch.roll(trev, -1), none)[None, :]
+
+    pt_col0 = pair_tbl[base, trev[0]]  # [4, 1]
+    open_col0 = torch.where(
+        pt_col0 > 0, duplex_init + em["ext5"][pt_col0, nbr, none], rd._INF
+    )
+    pt_row = pair_tbl[base, trev[None, :]]  # [4, L2]
+    open_row0 = torch.where(pt_row > 0, duplex_init + em["ext5"][pt_row, none, b3], rd._INF)
+    close_rowl = em["ext3"][pt_row, none, a5]
+    pt_coll = pair_tbl[base, trev[l2 - 1]]
+    close_coll = em["ext3"][pt_coll, nbr, none]
+    return open_col0, close_coll, open_row0, close_rowl
+
+
+def make_plan(targets_rev, em, maxloop: int) -> DuplexPlan:
+    """The per-landscape inputs of the kernel for int[T, L2] reversed targets.
+
+    Runs a few dozen torch ops and one device-to-host copy (the size costs);
+    make it once and pass it to every `duplex_energies` call.
+    """
+    _check_maxloop(maxloop)
+    if targets_rev.dim() != 2 or targets_rev.dtype.is_floating_point:
+        raise ValueError("targets_rev must be an integer tensor [T, L2]")
+    n_t, l2 = targets_rev.shape
+    if not 1 <= l2 <= _MAX_L2 or n_t < 1:
+        raise ValueError(f"unsupported shapes: targets {tuple(targets_rev.shape)}")
+    _check_em(em, maxloop)
+    dev = em["consts"].device
+    for name, x in [("targets_rev", targets_rev)] + list(em.items()):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the energy model on {dev}")
+
+    t_past, t_fut = rd.trigram_tables(em)
+    t3g, t2g = zip(*[rd.target_grams(trev) for trev in targets_rev])
+    tables = [torch.stack(p) for p in zip(*[_patch_tables(trev, em) for trev in targets_rev])]
+
+    def f32(x):
+        return x.to(torch.float32).contiguous()
+
+    costs = [f32(em[k]) for k in ("interior_cost", "bulge_seq", "bulge_tgt")]
+    host = np.concatenate([c.cpu().numpy().ravel() for c in costs])
+    host_costs = cost_struct(maxloop + 2).from_buffer_copy(host.astype(np.float32).tobytes())
+    return DuplexPlan(
+        targets_rev, em, maxloop, f32(t_past), f32(t_fut),
+        torch.stack(t3g).to(torch.int32).contiguous(),
+        torch.stack(t2g).to(torch.int32).contiguous(),
+        *(f32(x) for x in tables), *costs, host_costs,
+    )
+
+
+def plan_lookups(plan: DuplexPlan, tokens):
+    """The kernel's records of int[B, L1] tokens, looked up in torch as it does.
+
+    Returns (s3g, s2g, patches): the sequence gram indices int64[B, L1], and
+    per target (open_row0 [B, L2], open_col0 [B, L1], close_rowl [B, L2],
+    close_coll [B, L1]) in `rd.boundary_patches`' order.  A plain mirror of
+    the kernel's formulas for the tests; nothing on the card path calls it.
+    """
+    s = tokens.long()
+    l1 = s.shape[1]
+    i = torch.arange(l1, device=s.device)
+    sm1 = s[:, (i - 1).clamp(min=0)]
+    sm2 = s[:, (i - 2).clamp(min=0)]
+    sp1 = s[:, (i + 1).clamp(max=l1 - 1)]
+    s3g = sm2 * 16 + sm1 * 4 + s
+    s2g = s * 4 + sp1
+    b5 = torch.where(i > 0, sm1, rd.NONE_BASE)
+    a3 = torch.where(i < l1 - 1, sp1, rd.NONE_BASE)
+    patches = []
+    for t in range(plan.n_targets):
+        open_col0 = plan.open_col0[t][s, b5]
+        close_coll = plan.close_coll[t][s, a3]
+        open_row0 = plan.open_row0[t][s[:, 0]]  # [B, L2]
+        close_rowl = plan.close_rowl[t][s[:, -1]]
+        # Column first, then row: the corners are the column's.
+        open_row0[:, 0] = open_col0[:, 0]
+        close_rowl[:, -1] = close_coll[:, -1]
+        patches.append((open_row0, open_col0, close_rowl, close_coll))
+    return s3g, s2g, patches
+
+
+def _check_plan(plan: DuplexPlan, targets_rev, em, maxloop: int) -> None:
+    if plan.targets_rev is not targets_rev or plan.em is not em or plan.maxloop != maxloop:
+        raise ValueError("the plan was made for other targets, energy model or maxloop")
+
+
+def duplex_energies(tokens, targets_rev, em, maxloop: int, plan: DuplexPlan = None):
     """Duplex energies f32[B, T] of int[B, L1] tokens vs int[T, L2] reversed targets.
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
+    `plan` is `make_plan(targets_rev, em, maxloop)`, made once; without it
+    a CUDA call makes one first.
     """
     _check_maxloop(maxloop)
+    if plan is not None:
+        _check_plan(plan, targets_rev, em, maxloop)
     if tokens.device.type == "cpu":
         return duplex_energies_plain(tokens, targets_rev, em, maxloop)
     if tokens.device.type != "cuda":
         raise ValueError(f"unsupported device {tokens.device}")
-    return launch(*prepare(tokens, targets_rev, em, maxloop))
+    if plan is None:
+        plan = make_plan(targets_rev, em, maxloop)
+    return launch_plan(plan, tokens)
 
 
-launches = 0  # baseline kernel launches; `launch` adds one per launch
-# Launches of each knockout build, counted the same way.
-knockout_launches = {v: 0 for v in VARIANTS if v != "baseline"}
+launches = 0  # launches of the main path's kernel; `launch_plan` adds one each
+# Launches of each row-cost build of ROWCOST_SOURCE, counted by `launch`.
+rowcost_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launch_counts() -> None:
     """Set the launch count of every build to 0."""
     global launches
     launches = 0
-    for v in knockout_launches:
-        knockout_launches[v] = 0
+    for v in rowcost_launches:
+        rowcost_launches[v] = 0
 
 
 def launch_counts() -> dict:
-    """Launches of each build since the last reset, by variant name."""
-    return {"baseline": launches, **knockout_launches}
+    """Launches of each build since the last reset: MAIN, then each row-cost variant."""
+    return {MAIN: launches, **rowcost_launches}
+
+
+def launch_plan(plan: DuplexPlan, tokens):
+    """Launch the kernel on CUDA int[B, L1] tokens; returns f32[B, T].
+
+    Checks without a host sync, allocates the output and launches once on
+    the current stream.
+    """
+    global launches
+    dev = plan.device
+    if tokens.device != dev:
+        raise ValueError(f"tokens are on {tokens.device}, the plan on {dev}")
+    if tokens.dim() != 2 or tokens.dtype.is_floating_point:
+        raise TypeError("tokens must be an integer tensor [B, L1]")
+    if tokens.dtype not in (torch.int32, torch.int64):
+        tokens = tokens.long()
+    tokens = tokens.contiguous()
+    b, l1 = tokens.shape
+    if l1 < 1:
+        raise ValueError(f"unsupported shapes: tokens {tuple(tokens.shape)}")
+    out = torch.empty((b, plan.n_targets), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    lib = _load(MAIN)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.duplex_dp_launch(
+            tokens.data_ptr(), *plan.pointers(), out.data_ptr(),
+            int(tokens.dtype == torch.int64), b, plan.n_targets, l1, plan.l2,
+            plan.maxloop, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"duplex_dp kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out
+
+
+# --- The row-cost builds of ROWCOST_SOURCE (profiling only) ----------------
 
 
 def prepare(tokens, targets_rev, em, maxloop: int):
-    """Check CUDA inputs and build the kernel's arguments: (args, dims).
+    """Check CUDA inputs and build a row-cost build's arguments: (args, dims).
 
     args: the 13 input tensors and the f32[B, T] output, contiguous, in the
     C entry's order; dims: (B, T, L1, L2, maxloop).
@@ -194,12 +439,7 @@ def prepare(tokens, targets_rev, em, maxloop: int):
     if not 1 <= l2 <= _MAX_L2 or l1 < 1 or n_t < 1:
         raise ValueError(f"unsupported shapes: tokens {tuple(tokens.shape)}, "
                          f"targets {tuple(targets_rev.shape)}")
-    d = maxloop + 2
-    expected = {"interior_cost": (d, d), "bulge_seq": (d - 1,), "bulge_tgt": (d,)}
-    for name, shape in expected.items():
-        if tuple(em[name].shape) != shape:
-            raise ValueError(f"em[{name!r}] has shape {tuple(em[name].shape)}, "
-                             f"expected {shape} for maxloop={maxloop}")
+    _check_em(em, maxloop)
     for name, x in [("targets_rev", targets_rev)] + list(em.items()):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, tokens on {dev}")
@@ -229,13 +469,12 @@ def prepare(tokens, targets_rev, em, maxloop: int):
 
 
 def launch(args, dims, variant: str = "baseline"):
-    """Launch a variant's kernel on the current stream; returns the output tensor.
+    """Launch a row-cost build on the current stream; returns the output tensor.
 
     `args, dims` come from `prepare`.  An unknown variant, or dims that a
     compile-time build does not take, raise ValueError before anything is
     built or launched.
     """
-    global launches
     check_variant(variant, dims[2], dims[4])
     out = args[-1]
     if dims[0] == 0:
@@ -248,9 +487,6 @@ def launch(args, dims, variant: str = "baseline"):
             *[a.data_ptr() for a in args], *dims, _VARIANT_ID[variant], stream
         )
     if err != 0:
-        raise RuntimeError(f"duplex_dp ({variant}) kernel launch failed with CUDA error {err}")
-    if variant == "baseline":
-        launches += 1
-    else:
-        knockout_launches[variant] += 1
+        raise RuntimeError(f"duplex_rowcost ({variant}) kernel launch failed with CUDA error {err}")
+    rowcost_launches[variant] += 1
     return out

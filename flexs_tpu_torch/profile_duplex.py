@@ -10,8 +10,8 @@ Counterpart of scripts/profile_duplex.py.  For L1 in {14, 100} and B in
   gather   the gather-form DP, `rna_duplex._duplex_dp_batch`, in torch ops;
   slab     the plain slab DP, `rna_duplex.duplex_energy_from_slabs`;
   build    the slab build alone, `rna_duplex.build_slabs`;
-  kernel   the CUDA kernel through `cuda_duplex.duplex_energies` (with its
-           torch prep).
+  kernel   the CUDA kernel through `cuda_duplex.duplex_energies` on a plan
+           made once (`cuda_duplex.make_plan`), as the landscape calls it.
 
 Times are CUDA-event medians (`profile_duplex_rowcost.time_ms`).  A plain
 path whose B=512 time, scaled by 8, would exceed PLAIN_LIMIT_S at B=4096 is
@@ -48,6 +48,7 @@ def main() -> int:
         rng.integers(0, 4, TARGET_L2, dtype=np.int32)[::-1].copy(), device=dev
     )
 
+    plan = cuda_duplex.make_plan(target_rev[None], em, maxloop)
     x0 = torch.zeros((8, 128), dtype=torch.float32, device=dev)
     floor_ms = time_ms(lambda: x0 + 1.0, REPS, INNER)
     print(f"dispatch floor (x + 1 on f32[8, 128]): {floor_ms:.4f} ms", flush=True)
@@ -56,7 +57,8 @@ def main() -> int:
         "gather": lambda t: rd._duplex_dp_batch(t, target_rev, em, maxloop),
         "slab": lambda t: rd.duplex_energy_from_slabs(t, target_rev, em, maxloop),
         "build": lambda t: rd.build_slabs(t, target_rev, em),
-        "kernel": lambda t: cuda_duplex.duplex_energies(t, target_rev[None], em, maxloop),
+        "kernel": lambda t: cuda_duplex.duplex_energies(
+            t, plan.targets_rev, em, maxloop, plan=plan),
     }
     readings = []
     for l1 in LENGTHS:

@@ -1,4 +1,4 @@
-"""The CUDA duplex kernel held against its plain version, on the card.
+"""The CUDA duplex kernels held against their plain version, on the card.
 
 These tests need a CUDA card and the CUDA toolkit; elsewhere they skip.
 They import nothing of JAX, so on a machine without it they run as
@@ -33,6 +33,7 @@ def _tokens(rng, shape, dev):
     [
         (7, 37, 1, 37, 16),  # L2 not a multiple of the warp
         (3, 20, 3, 300, 16),  # > 48 KB of shared memory, three targets
+        (2, 12, 1, 600, 16),  # too wide for the compile-time window's blocks
         (16, 30, 2, 25, 3),  # the smallest window the kernel takes
         (16, 40, 1, 40, 7),
         (1, 1, 1, 1, 16),  # one cell
@@ -106,9 +107,9 @@ def test_rowcost_baseline_equals_plain(card, b, l1, l2):
     em = rd.DuplexParams.calibrated().energy_model(card)
     tokens = _tokens(rng, (b, l1), card)
     target_rev = _tokens(rng, (l2,), card)
-    before = cuda_duplex.launches
+    before = cuda_duplex.rowcost_launches["baseline"]
     got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, 16, "baseline")
-    assert cuda_duplex.launches == before + 1
+    assert cuda_duplex.rowcost_launches["baseline"] == before + 1
     want = cuda_duplex.duplex_energies_plain(tokens, target_rev[None], em, 16)[:, 0]
     assert torch.equal(got, want), float((got - want).abs().max())
 
@@ -125,9 +126,72 @@ def test_rowcost_unrolled_equals_plain(card):
 def test_rowcost_knockout_returns_finite_energies(card, variant):
     tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
     tokens = tokens[:128]
-    before = cuda_duplex.knockout_launches[variant]
+    before = cuda_duplex.rowcost_launches[variant]
     got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, variant)
     torch.cuda.synchronize()
-    assert cuda_duplex.knockout_launches[variant] == before + 1
+    assert cuda_duplex.rowcost_launches[variant] == before + 1
     assert got.shape == (128,) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
+
+
+def _calibrated(card):
+    params = rd.DuplexParams.calibrated()
+    return params.energy_model(card), params.maxloop
+
+
+@pytest.mark.parametrize("b", [100, 512, 4096])
+def test_kernel_equals_plain_at_main_path_width(card, b):
+    rng = np.random.default_rng(b)
+    em, maxloop = _calibrated(card)
+    tokens = _tokens(rng, (b, 100), card)
+    targets_rev = _tokens(rng, (1, 100), card)
+    got = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop)
+    want = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("b,l1,n_t,l2", [
+    (100, 100, 1, 100),  # the main path's shape
+    (9, 37, 2, 37),  # L2 not a multiple of the warp, two targets
+    (5, 1, 1, 128),  # one row
+    (6, 20, 1, 1),  # one column
+    (100, 100, 1, 32),  # a short target: one warp per block
+    (4, 30, 1, 512),  # the widest target of the compile-time window
+    (4, 30, 1, 513),  # the narrowest of the runtime window at maxloop 16
+])
+def test_plan_kernel_equals_plain(card, b, l1, n_t, l2):
+    rng = np.random.default_rng(b * 1000 + l2)
+    em, maxloop = _calibrated(card)
+    tokens = _tokens(rng, (b, l1), card)
+    targets_rev = _tokens(rng, (n_t, l2), card)
+    plan = cuda_duplex.make_plan(targets_rev, em, maxloop)
+    got = cuda_duplex.launch_plan(plan, tokens)
+    want = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_plan_call_launches_once(card):
+    rng = np.random.default_rng(7)
+    em, maxloop = _calibrated(card)
+    targets_rev = _tokens(rng, (2, 100), card)
+    plan = cuda_duplex.make_plan(targets_rev, em, maxloop)
+    tokens = _tokens(rng, (100, 100), card).to(torch.int32)
+    before = cuda_duplex.launch_counts()
+    got = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop, plan=plan)
+    after = cuda_duplex.launch_counts()
+    assert after[cuda_duplex.MAIN] == before[cuda_duplex.MAIN] + 1
+    assert all(after[v] == before[v] for v in cuda_duplex.VARIANTS)
+    want = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    with pytest.raises(ValueError, match="plan was made for other"):
+        cuda_duplex.duplex_energies(tokens, targets_rev.clone(), em, maxloop, plan=plan)
+
+
+def test_token_outside_the_alphabet_scores_nan(card):
+    em, maxloop = _calibrated(card)
+    tokens = torch.full((3, 30), 2, dtype=torch.long, device=card)
+    tokens[1, 7] = 4
+    targets_rev = torch.full((1, 30), 1, dtype=torch.long, device=card)
+    got = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop).cpu()
+    assert torch.isnan(got[1, 0]) and torch.isfinite(got[[0, 2], 0]).all()

@@ -176,7 +176,7 @@ def test_golden_band_l14_rna1(landscape, signal_strength):
 
 def test_profile_spans_wrap_the_run(landscape):
     """Every span of the profile script resolves and sees calls in a run; on
-    the CPU the kernel-only spans (prepare, launch) are the only silent ones."""
+    the CPU the kernel-only span (launch_plan) is the only silent one."""
     from flexs_tpu_torch import profile_main_path
 
     calls = dict.fromkeys(profile_main_path.SPANS, 0)
@@ -192,4 +192,4 @@ def test_profile_spans_wrap_the_run(landscape):
     with profile_main_path.spans_installed(counted):
         _run(landscape, rounds=1)
     assert {label: getattr(*where) for label, where in profile_main_path.SPANS.items()} == originals
-    assert [label for label, n in calls.items() if n == 0] == ["duplex.prepare", "duplex.launch"]
+    assert [label for label, n in calls.items() if n == 0] == ["duplex.launch_plan"]

@@ -93,12 +93,13 @@ def test_device_fitness_on_cpu_is_the_plain_version():
     port, ref = _pair("L14_RNA1+2")
     fn, params = port.device_fitness()
     assert fn is rna._rna_binding_fitness
-    assert all(p.device.type == "cpu" for p in (params[0], params[2], params[3]))
+    assert all(p.device.type == "cpu"
+               for p in (params.plan.targets_rev, params.norms, params.conserved, params.plan.t3g))
     tokens = torch.as_tensor(np.random.default_rng(5).integers(0, 4, (8, 14)))
     before = cuda_duplex.launches
     got = fn(params, tokens)
     assert cuda_duplex.launches == before
-    targets_rev, em, norms, _ = params
+    targets_rev, em, norms = params.plan.targets_rev, params.plan.em, params.norms
     plain = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, 16)
     np.testing.assert_array_equal(got.numpy(), ((plain / norms).sum(1) / 2).numpy())
     jfn, jparams = ref.device_fitness()

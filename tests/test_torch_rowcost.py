@@ -20,9 +20,9 @@ from flexs_tpu_torch.ops import cuda_duplex
 from flexs_tpu_torch.ops import rna_duplex as rd
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# sha256 of the baseline kernel's preprocessed tokens: the kernel the main
-# path was measured with (PERF.md).  Update it only with a deliberate
-# change to that kernel.
+# sha256 of the baseline kernel's preprocessed tokens: the first CUDA
+# kernel, kept in csrc/duplex_rowcost.cu as the yardstick of the redesign
+# (PERF.md).  Update it only with a deliberate change to that kernel.
 BASELINE_KERNEL_TOKENS_SHA256 = (
     "68c74dfb1fee66e3754fbbef07c12a82dd13cd9a32855754536fc30b28b70627"
 )
@@ -57,7 +57,7 @@ def test_each_variant_has_its_own_build():
 
 def test_baseline_flags_are_the_main_paths():
     flags = cuda_duplex.nvcc_flags("baseline")
-    assert flags == cuda_duplex.NVCC_FLAGS
+    assert flags == cuda_duplex.NVCC_FLAGS == cuda_duplex.nvcc_flags(cuda_duplex.MAIN)
     assert not any(f.startswith("-D") for f in flags)
     assert "--use_fast_math" not in flags
 
@@ -130,7 +130,10 @@ def test_launch_checks_before_the_empty_batch_shortcut(no_build):
 
 
 def test_knockout_launch_counts_name_each_knockout():
-    assert set(cuda_duplex.knockout_launches) == set(cuda_duplex.VARIANTS) - {"baseline"}
+    # Every row-cost build, the first kernel (baseline) included, has its own counter;
+    # `cuda_duplex.launches` counts the main path's kernel only.
+    assert set(cuda_duplex.rowcost_launches) == set(cuda_duplex.VARIANTS)
+    assert set(cuda_duplex.launch_counts()) == {cuda_duplex.MAIN, *cuda_duplex.VARIANTS}
 
 
 def test_seeded_inputs_repeat_the_jax_scripts_draws():
@@ -175,6 +178,15 @@ def test_parse_sass_counts_instructions_and_backward_branches():
     }
 
 
+def test_longest_loop_counts_the_row_loop():
+    # The loop 0x10..0x40 holds S2R, a forward branch, FMNMX and the branch back.
+    assert profile_duplex_rowcost.longest_loop(_SASS) == {
+        "loop_instructions": 4, "loop_shared_loads": 0,
+    }
+    looped = _SASS.replace("FMNMX R2, R2, R3, PT", "LDS R2, [R3+0x8]")
+    assert profile_duplex_rowcost.longest_loop(looped)["loop_shared_loads"] == 1
+
+
 @pytest.mark.parametrize("text", ["", "/*0000*/  BRA `(.L_x_3) ;"])
 def test_parse_sass_refuses_what_it_cannot_read(text):
     with pytest.raises(ValueError):
@@ -190,12 +202,14 @@ def test_launch_counts_reset_every_build():
     saved = cuda_duplex.launch_counts()
     try:
         cuda_duplex.launches = 3
-        cuda_duplex.knockout_launches["unrolled"] = 2
+        cuda_duplex.rowcost_launches["unrolled"] = 2
+        cuda_duplex.rowcost_launches["baseline"] = 1
         cuda_duplex.reset_launch_counts()
-        assert cuda_duplex.launch_counts() == dict.fromkeys(cuda_duplex.VARIANTS, 0)
+        assert cuda_duplex.launch_counts() == dict.fromkeys(
+            (cuda_duplex.MAIN,) + cuda_duplex.VARIANTS, 0)
     finally:
-        cuda_duplex.launches = saved.pop("baseline")
-        cuda_duplex.knockout_launches.update(saved)
+        cuda_duplex.launches = saved.pop(cuda_duplex.MAIN)
+        cuda_duplex.rowcost_launches.update(saved)
 
 
 def _preprocess(defines):
@@ -203,7 +217,7 @@ def _preprocess(defines):
     cpp = shutil.which("cpp")
     if cpp is None:
         pytest.skip("needs the C preprocessor")
-    with open(cuda_duplex.SOURCE) as f:
+    with open(cuda_duplex.ROWCOST_SOURCE) as f:
         src = "".join(line for line in f if not line.startswith("#include"))
     return subprocess.run(
         [cpp, "-P", *defines, "-"], input=src, capture_output=True, text=True, timeout=60
