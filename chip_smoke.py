@@ -20,14 +20,30 @@ Phases (any failed check raises, and the script exits nonzero):
      path's kernel and top true_score 0.667402;
   4. run the host path: Adalead + NoisyAbstractModel on the same landscape
      for 3 rounds: 112 launches, top true_score 0.619458;
-  5. row-cost knockouts: the path of `python -m
+  5. TF-Bind-8, whose oracle is a table gather and launches no kernel of
+     this port (each of a-e requires 0 launches of every duplex build):
+     a. the oracle on the card equals the CPU's bitwise, on 4,096 seeded
+        tokens for each of the 200 landscapes and on all 65,536 8-mers of
+        SIX6_REF_R1;
+     b. the fused run: DeviceAdaleadNAM on SIX6_REF_R1, 10 x 100 x 2000,
+        NAM at 0.9, seed 0, STARTS[0]: run invariants, top true_score
+        > 0.95; printed twice (cold, warm) with queries/s;
+     c. the host run: Adalead + NoisyAbstractModel, 3 rounds;
+     d. the robustness sweep at bench.py's shape: 40 landscapes x 5 signal
+        strengths, 10 x 100 x 2000, chunks of 40 cells: every cell's max
+        >= its start and model cost > 0; the first and last cells equal a
+        standalone DeviceAdaleadNAM exactly; warm wall, sequences scored/s,
+        peak memory, host syncs and draw calls per chunk;
+     e. the efficiency and adaptivity sweeps at bench.py's grid on 8
+        landscapes: wall, peak memory and chunk size of each;
+  6. row-cost knockouts: the path of `python -m
      flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
      measure` runs every build on the profiler's seeded inputs at B=4096
      and B=100, requires baseline and unrolled (and the redesigned kernel,
      timed beside them) to equal the plain version bitwise and const-rec
      and carry-windows (wrong by design) to give finite f32[B], and times
      each;
-  6. print one JSON line describing each kernel, the card's name and power
+  7. print one JSON line describing each kernel, the card's name and power
      limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -53,6 +69,13 @@ FP32_OPS_PER_S = 67e12
 # first kernel gave them; bitwise-equal energies must reproduce them.
 FUSED_LAUNCHES, FUSED_TOP = 439, 0.667402
 HOST_LAUNCHES, HOST_TOP = 112, 0.619458
+# TF-Bind-8 (phase 5): the sweep at bench.py:72-95's shape and the
+# evaluator grids of bench.py:147-182.  Chunks of 40 and of all 8
+# evaluator cells peak under 10 GB of device memory (PERF.md).
+SWEEP_LANDSCAPES, SWEEP_CHUNK = 40, 40
+SWEEP_SIGNAL_STRENGTHS = (0.0, 0.5, 0.75, 0.9, 1.0)
+EVAL_LANDSCAPES, EVAL_CHUNK = 8, 8
+EFFICIENCY_BUDGETS = ((100, 500), (100, 5000), (1000, 5000), (1000, 10000))
 
 
 def card_line() -> str:
@@ -161,6 +184,162 @@ def check_run_frame(df, rounds: int, batch: int, budget: int, start: str, per_ro
     assert costs.is_monotonic_increasing
     assert (np.diff(costs.to_numpy()) <= budget + batch).all()
     assert np.isfinite(df["true_score"]).all()
+
+
+def no_duplex_launches(cuda_duplex, phase: str) -> None:
+    counts = cuda_duplex.launch_counts()
+    assert not any(counts.values()), f"TF-Bind phase {phase} launched duplex builds: {counts}"
+
+
+def timed(fn):
+    """(result, seconds) of `fn()`, ended by a device synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 5 (a-e): TF-Bind-8's oracle, fused and host runs, and sweeps."""
+    from flexs_tpu_torch.landscapes import tf_binding
+    from flexs_tpu_torch.parallel import (
+        run_adaptivity_sweep, run_efficiency_sweep, run_robustness_sweep,
+    )
+    from flexs_tpu_torch.runtime import jit_runner
+
+    names = list(tf_binding.registry())
+    start = tf_binding.STARTS[0]
+    rng = np.random.default_rng(SEED)
+    cuda_duplex.reset_launch_counts()
+
+    # a. The oracle, card vs CPU.
+    tokens = rng.integers(0, 4, (4096, 8))
+    for name in names:
+        on_card = tf_binding.TFBinding(name=name).fitness_from_tokens(tokens).cpu()
+        on_cpu = tf_binding.TFBinding(name=name, device="cpu").fitness_from_tokens(tokens)
+        assert torch.equal(on_card, on_cpu), name
+    every = (np.arange(4 ** 8)[:, None] >> (2 * np.arange(7, -1, -1))) & 3
+    six6 = tf_binding.TFBinding(name="SIX6_REF_R1")
+    on_card = six6.fitness_from_tokens(every).cpu()
+    on_cpu = tf_binding.TFBinding(name="SIX6_REF_R1", device="cpu").fitness_from_tokens(every)
+    assert torch.equal(on_card, on_cpu) and torch.equal(on_card, six6.table.cpu())
+    no_duplex_launches(cuda_duplex, "a")
+    print(f"tf-bind oracle: card == CPU (bitwise) on 4096 seeded tokens x {len(names)} "
+          f"landscapes and all 65536 8-mers of SIX6_REF_R1 [{card}]")
+
+    # b. The fused run, cold then warm.
+    def fused():
+        land = tf_binding.TFBinding(name="SIX6_REF_R1")
+        runner = flexs.runtime.DeviceAdaleadNAM(
+            land, flexs.DNAA, rounds=10, sequences_batch_size=100,
+            model_queries_per_batch=2000, starting_sequence=start, signal_strength=0.9,
+            seed=0,
+        )
+        (df, _), wall = timed(lambda: runner.run(verbose=False))
+        return df, wall, int(df["model_cost"].max()) + land.cost
+
+    fused_walls = []
+    for _ in range(2):
+        df, wall, queries = fused()
+        fused_walls.append(wall)
+    check_run_frame(df, 10, 100, 2000, start, per_round=100)
+    truth = six6.get_fitness(df["sequence"].tolist())
+    assert np.array_equal(df["true_score"].to_numpy(), truth)
+    fused_top = float(df["true_score"].max())
+    assert fused_top > 0.95, fused_top
+    no_duplex_launches(cuda_duplex, "b")
+    print(f"tf-bind fused: wall {fused_walls[0]} s cold, {fused_walls[1]} s warm, "
+          f"{queries / fused_walls[1]} queries/s warm (model + landscape), top true_score "
+          f"{fused_top}, rows {len(df)}, duplex launches 0 [{card}]")
+
+    # c. The host run.
+    host_land = tf_binding.TFBinding(name="SIX6_REF_R1")
+    explorer = flexs.baselines.explorers.Adalead(
+        flexs.baselines.models.NoisyAbstractModel(host_land, 0.9, seed=0),
+        rounds=3, sequences_batch_size=100, model_queries_per_batch=2000,
+        starting_sequence=start, alphabet=flexs.DNAA, seed=0,
+    )
+    (df_host, _), host_wall = timed(lambda: explorer.run(host_land, verbose=False))
+    check_run_frame(df_host, 3, 100, 2000, start, per_round=99)
+    assert np.array_equal(df_host["true_score"].to_numpy(),
+                          host_land.get_fitness(df_host["sequence"].tolist()))
+    host_top = float(df_host["true_score"].max())
+    no_duplex_launches(cuda_duplex, "c")
+    print(f"tf-bind host: wall {host_wall} s, top true_score {host_top}, rows {len(df_host)} "
+          f"[{card}]")
+
+    # d. The robustness sweep, warmed by one round of its first chunk.
+    grid = dict(landscape_names=names[:SWEEP_LANDSCAPES], starts=[start],
+                signal_strengths=SWEEP_SIGNAL_STRENGTHS, seeds=[0],
+                sequences_batch_size=100, model_queries_per_batch=2000)
+    run_robustness_sweep(**{**grid, "landscape_names": names[:SWEEP_CHUNK // 5]}, rounds=1)
+    torch.cuda.reset_peak_memory_stats()
+    jit_runner.reset_run_counts()
+    sweep, sweep_wall = timed(lambda: run_robustness_sweep(
+        **grid, rounds=10, chunk_size=SWEEP_CHUNK))
+    counts = dict(jit_runner.run_counts)
+    sweep_peak = torch.cuda.max_memory_allocated()
+    assert len(sweep) == SWEEP_LANDSCAPES * len(SWEEP_SIGNAL_STRENGTHS)
+    assert (sweep["max_fitness"] >= sweep["start_fitness"]).all()
+    assert (sweep["model_cost"] > 0).all()
+    singles = []
+    for row in (sweep.iloc[0], sweep.iloc[-1]):
+        land = tf_binding.TFBinding(name=row["landscape"])
+        runner = flexs.runtime.DeviceAdaleadNAM(
+            land, flexs.DNAA, rounds=10, sequences_batch_size=100,
+            model_queries_per_batch=2000, starting_sequence=row["start"],
+            signal_strength=row["signal_strength"], seed=int(row["seed"]),
+        )
+        jit_runner.reset_run_counts()
+        (single, _), wall = timed(lambda: runner.run(verbose=False))
+        assert row["max_fitness"] == single["true_score"].max(), row
+        assert row["model_cost"] == single["model_cost"].iloc[-1], row
+        assert row["landscape_cost"] == land.cost, row
+        singles.append({"wall_s": wall, "signal_strength": float(row["signal_strength"]),
+                        "syncs": jit_runner.run_counts["syncs"],
+                        "draw_calls": jit_runner.run_counts["draw_calls"]})
+    no_duplex_launches(cuda_duplex, "d")
+    chunks = counts["runs"]
+    scored = int(sweep["model_cost"].sum() + sweep["landscape_cost"].sum())
+    sweep_reading = {
+        "cells": len(sweep), "chunk_size": SWEEP_CHUNK, "chunks": chunks,
+        "wall_s": sweep_wall, "chunk_wall_s": sweep_wall / chunks,
+        "sequences_scored_per_s": scored / sweep_wall,
+        "mean_max_fitness": float(sweep["max_fitness"].mean()),
+        "peak_memory_bytes": sweep_peak,
+        "syncs_per_chunk": counts["syncs"] / chunks,
+        "draw_calls_per_chunk": counts["draw_calls"] / chunks,
+        "first_and_last_cell_alone": singles,
+        "chunk_wall_over_fused_warm_wall": sweep_wall / chunks / fused_walls[1],
+    }
+    print(f"tf-bind robustness sweep: {sweep_reading['cells']} cells in {chunks} chunks of "
+          f"{SWEEP_CHUNK}: warm wall {sweep_wall} s ({sweep_reading['chunk_wall_s']} s per "
+          f"chunk, {sweep_reading['chunk_wall_over_fused_warm_wall']} x the warm fused run), "
+          f"{sweep_reading['sequences_scored_per_s']} sequences scored/s (model + landscape "
+          f"cost over wall), mean max_fitness {sweep_reading['mean_max_fitness']}, peak memory "
+          f"{sweep_peak} bytes, per chunk {sweep_reading['syncs_per_chunk']} host syncs and "
+          f"{sweep_reading['draw_calls_per_chunk']} draw calls; first and last cells alone "
+          f"{singles}; both equal to the standalone runner [{card}]")
+
+    # e. The evaluator sweeps at bench.py's grid.
+    evals = {}
+    for label, fn, kw in (
+        ("efficiency", run_efficiency_sweep,
+         dict(budgets=EFFICIENCY_BUDGETS, chunk_size=EVAL_CHUNK)),
+        ("adaptivity", run_adaptivity_sweep,
+         dict(num_rounds=(1, 10, 100), chunk_size=EVAL_CHUNK)),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        df_eval, wall = timed(lambda: fn(names[:EVAL_LANDSCAPES], [start], **kw))
+        assert (df_eval["max_fitness"] >= df_eval["start_fitness"]).all()
+        assert (df_eval["model_cost"] > 0).all()
+        evals[label] = {"cells": len(df_eval), "chunk_size": kw["chunk_size"], "wall_s": wall,
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                        "mean_max_fitness": float(df_eval["max_fitness"].mean())}
+        print(f"tf-bind {label} sweep: {evals[label]} [{card}]")
+    no_duplex_launches(cuda_duplex, "e")
+    return {"fused_walls_s": fused_walls, "fused_top": fused_top, "host_wall_s": host_wall,
+            "host_top": host_top, "robustness_sweep": sweep_reading, **evals}
 
 
 def clock_line() -> str:
@@ -322,7 +501,11 @@ def main() -> int:
     print(f"host: wall {host_wall} s, top true_score {host_top}, "
           f"kernel launches {host_counts}, rows {len(df_host)}")
 
-    # 5. Row-cost builds: the profiler's run, check and timing of every
+    # 5. TF-Bind-8: no kernel of this port on its path.
+    tf_readings = tf_binding_phases(flexs, cuda_duplex, card)
+    print(f"tf-bind readings: {json.dumps(tf_readings)}")
+
+    # 6. Row-cost builds: the profiler's run, check and timing of every
     # build on its seeded inputs, with the redesigned kernel beside them.
     cuda_duplex.reset_launch_counts()
     rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
@@ -347,7 +530,7 @@ def main() -> int:
     print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} and duplex_dp == plain (bitwise) at "
           f"B={tuple(rc)}; launches {rc_counts}")
 
-    # 6. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 7. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",

@@ -22,6 +22,8 @@ from flexs_tpu_torch import types  # noqa: F401
 from flexs_tpu_torch.alphabet import AAS, BA, DNAA, RNAA, Alphabet  # noqa: F401
 from flexs_tpu_torch.landscape import Landscape  # noqa: F401
 from flexs_tpu_torch.model import LandscapeAsModel, Model  # noqa: F401
+from flexs_tpu_torch.ensemble import Ensemble  # noqa: F401
 from flexs_tpu_torch.explorer import Explorer  # noqa: F401
 
-from flexs_tpu_torch import baselines, landscapes, ops, runtime  # noqa: F401
+from flexs_tpu_torch import baselines, evaluate, landscapes, utils  # noqa: F401
+from flexs_tpu_torch import ops, parallel, runtime  # noqa: F401

@@ -1,12 +1,27 @@
 """Batched sequence-distance helpers.
 
+`hamming_distance_matrix` is the all-pairs Hamming distance of token rows;
 `min_hamming_and_argmin` reduces a [B, N] distance matrix (ties go to the
 first index, as `jnp.argmin` does); `edit_distance_matrix` is the exact
-Levenshtein DP the host NoisyAbstractModel needs for mixed-length queries.
-The fixed-length fast path is `ops.packed_hamming`.
+Levenshtein DP the host NoisyAbstractModel needs for mixed-length queries,
+and `banded_edit_distance_matrix` the radius-limited one.  The fixed-length
+fast path is `ops.packed_hamming`.
 """
 import numpy as np
 import torch
+
+
+def hamming_distance_matrix(queries, cache, alphabet_size: int) -> torch.Tensor:
+    """All-pairs Hamming distances int32[B, N] of int[B, L] vs int[N, L] tokens.
+
+    A position matches when both tokens are equal and inside
+    [0, alphabet_size), as the JAX package's one-hot contraction counts it.
+    """
+    q = torch.as_tensor(queries).long()
+    c = torch.as_tensor(cache).long().to(q.device)
+    in_range = (q >= 0) & (q < alphabet_size)
+    matches = ((q[:, None, :] == c[None, :, :]) & in_range[:, None, :]).sum(dim=-1)
+    return (q.shape[-1] - matches).to(torch.int32)
 
 
 def min_hamming_and_argmin(dists):
@@ -42,3 +57,57 @@ def edit_distance_matrix(queries, cache) -> np.ndarray:
         prev = torch.where(i < lb[..., None], torch.stack(row, dim=-1), prev)
     out = prev.gather(-1, la[:, :, None].expand(n_q, n_c, 1))[..., 0]
     return out.to(torch.int32).numpy()
+
+
+def banded_edit_distance_matrix(queries, cache, band: int = 2) -> torch.Tensor:
+    """Levenshtein matrix int32[B, N], exact up to `band`, else band + 1.
+
+    Ukkonen-style banded Wagner-Fischer over all pairs at once: only the
+    2 * band + 1 diagonals |i - j| <= band are tracked, so each of the L
+    steps is O(band) [B, N] tensor ops; any true distance > band reports
+    exactly band + 1.  Positions with value < 0 are padding at the end of a
+    row.  The step follows the JAX package's `_banded_edit_distance_pairwise`.
+    """
+    a = torch.as_tensor(queries).long()
+    b = torch.as_tensor(cache).long().to(a.device)
+    dev = a.device
+    L = a.shape[1]
+    K = 2 * band + 1
+    inf = band + 1
+    la = (a >= 0).sum(dim=1)[:, None, None]  # [B, 1, 1]
+    lb = (b >= 0).sum(dim=1)[None, :, None]  # [1, N, 1]
+    offs = torch.arange(K, device=dev) - band  # column offset j - r
+
+    # Row 0: dp[0][j] = j for j in 0..band; columns off-band are saturated.
+    w = torch.where(offs >= 0, offs, inf).clamp(max=inf)
+    w = w.expand(a.shape[0], b.shape[0], K)
+    for r in range(1, L + 1):
+        # w[..., d] = dp[r-1][r-1 + offs[d]]; compute row r (a-prefix r).
+        j = r + offs
+        achar = a[:, r - 1][:, None, None]
+        inside = (j >= 1) & (j <= L)
+        bj = torch.where(inside[None, :], b[:, (j - 1).clamp(0, L - 1)], -2)  # [N, K]
+        cost = (achar != bj[None]).long()
+        # dp[r-1][j] sits one offset up in the previous window; dp[r-1][j-1]
+        # sits at the same offset.
+        up = torch.cat([w[..., 1:], torch.full_like(w[..., :1], inf)], dim=-1)
+        cand = torch.minimum(up + 1, w + cost)
+        vals = []
+        left = torch.full_like(w[..., 0], inf)
+        for d in range(K):
+            col = r + d - band  # j[d]
+            v = torch.minimum(cand[..., d], left + 1)
+            if col == 0:
+                v = torch.full_like(v, r)
+            if col < 0:
+                v = torch.full_like(v, inf)
+            v = torch.where(col > lb[..., 0], inf, v).clamp(max=inf)
+            vals.append(v)
+            left = v
+        # Freeze once past a's true length so w holds row `la` at the end.
+        w = torch.where(r <= la, torch.stack(vals, dim=-1), w)
+    # Answer = dp[la][lb] = window offset lb - la (saturated if off-band).
+    off = (lb - la)[..., 0]
+    idx = (off + band).clamp(0, K - 1)
+    out = w.gather(-1, idx[..., None])[..., 0]
+    return torch.where(off.abs() <= band, out, inf).to(torch.int32)

@@ -12,10 +12,13 @@ in int64 (values < 2**32, bit-identical to the JAX package's uint32 words)
 and popcount is the SWAR bit trick.  Plain torch ops; the fused min/argmin
 kernel is later work.
 """
+import functools
+
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=None)
 def packing_spec(length: int, alphabet_size: int):
     """(bits per symbol, symbols per word, number of words) for a length."""
     bits = max(1, int(np.ceil(np.log2(max(alphabet_size, 2)))))
@@ -35,10 +38,16 @@ def pack_tokens(tokens, alphabet_size: int, length: int = None) -> torch.Tensor:
             [tokens, tokens.new_zeros(tokens.shape[:-1] + (pad,))], dim=-1
         )
     grouped = tokens.reshape(tokens.shape[:-1] + (words, per_word)).long()
-    shifts = bits * torch.arange(per_word, device=grouped.device)
+    shifts = _shifts(bits, per_word, grouped.device)
     # Groups occupy disjoint bit ranges, so summing the shifted groups is
     # exactly their bitwise OR.
     return (grouped << shifts).sum(dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _shifts(bits: int, per_word: int, device: torch.device) -> torch.Tensor:
+    """Bit offset of each symbol in its word (cached: read-only)."""
+    return bits * torch.arange(per_word, device=device)
 
 
 def _lsb_mask(bits: int, per_word: int) -> int:
@@ -57,11 +66,12 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
 
 
 def packed_hamming_matrix(q_packed, c_packed, bits: int, per_word: int):
-    """All-pairs Hamming distances of packed rows: int32[B, N].
+    """All-pairs Hamming distances of packed rows: int32[..., B, N].
 
-    q_packed: int64[B, K]; c_packed: int64[N, K].
+    q_packed: int64[..., B, K]; c_packed: int64[..., N, K], with the same
+    leading (cell) dimensions or none.
     """
-    x = q_packed[:, None, :] ^ c_packed[None, :, :]  # [B, N, K]
+    x = q_packed.unsqueeze(-2) ^ c_packed.unsqueeze(-3)  # [..., B, N, K]
     fold = x
     for s in range(1, bits):
         fold = fold | (x >> s)

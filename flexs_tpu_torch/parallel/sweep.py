@@ -1,0 +1,431 @@
+"""Sweep engine: many Adalead + NAM runs as lockstep batches of cells.
+
+The reference's evaluators loop serially over sweep cells (reference
+evaluate.py:27-36) and its paper experiments scaled out with independent
+cloud VMs (paper_code/cloud/runner.py:90-126).  Here a grid — landscape x
+starting sequence x signal strength x seed — runs in chunks of cells, each
+chunk one lockstep batch on one device (`run_adalead_nam_cells`): the
+counterpart of the JAX package's vmapped sweep.  A cell's result depends
+only on its own (landscape, start, signal strength, seed), so it equals the
+standalone fused run with that seed, whatever its chunk.
+
+Score tables are not replicated per cell: every cell carries an index into
+one stacked table tensor, so a 200-landscape sweep holds one
+[200, 65536] f32 tensor whatever the grid's size.
+"""
+import hashlib
+import json
+import os
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
+from flexs_tpu_torch.device import resolve_device
+from flexs_tpu_torch.landscapes import tf_binding
+from flexs_tpu_torch.runtime.jit_runner import (
+    AdaleadConfig,
+    RunResult,
+    run_adalead_nam_cells,
+)
+
+
+def _indexed_table_fitness(params, tokens):
+    """Fitness f32[C, B] via shared stacked tables: params = (tables, table_idx[C])."""
+    tables, idx = params
+    return tables[idx[:, None], tf_binding.tokens_to_index(tokens)]
+
+
+def _generator(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _run_chunk(tables, table_idx, start_tokens, signal_strengths, seeds, cfg, device,
+               cell_mode):
+    """RunResult (tensors, leading cell axis) of one chunk of cells."""
+    idx = torch.as_tensor(table_idx, device=device)
+    start = torch.as_tensor(start_tokens, device=device)
+    gens = [_generator(s, device) for s in seeds]
+    if cell_mode == "vmap":
+        return run_adalead_nam_cells(
+            _indexed_table_fitness, (tables, idx), start, cfg, signal_strengths, gens
+        )
+    # "map": one cell at a time through the same runner, so each cell's
+    # loops run their own trip counts.
+    outs = [
+        run_adalead_nam_cells(
+            _indexed_table_fitness, (tables, idx[c : c + 1]), start[c : c + 1], cfg,
+            signal_strengths[c : c + 1], gens[c : c + 1],
+        )
+        for c in range(len(gens))
+    ]
+    return RunResult(*(torch.cat(xs) for xs in zip(*outs)))
+
+
+def sweep_adalead_nam(
+    tables,
+    table_idx,
+    start_tokens,
+    signal_strengths,
+    seeds,
+    cfg: AdaleadConfig,
+    chunk_size: Optional[int] = None,
+    device=None,
+    cell_mode: str = "vmap",
+    checkpoint_dir: Optional[str] = None,
+) -> RunResult:
+    """Run a flat batch of C sweep cells on one device.
+
+    Args:
+        tables: f32[num_landscapes, 4^L] stacked score tables (shared).
+        table_idx: int[C] landscape index per cell.
+        start_tokens: int[C, L] starting sequence per cell.
+        signal_strengths: f32[C] NAM alpha per cell.
+        seeds: int[C] generator seed per cell.
+        cfg: Adalead configuration (the same for every cell).
+        chunk_size: Run at most this many cells per lockstep batch (each
+            cell carries O(rounds * queries) device buffers, so wide grids
+            must be chunked to fit device memory).  The tail chunk is
+            padded to `chunk_size` by repeating cell 0; the padding is
+            dropped.
+        device: Where the cells run (default "cuda").
+        cell_mode: "vmap" runs a chunk's cells in lockstep; "map" runs them
+            one by one through the same runner.  Results are identical.
+        checkpoint_dir: Resume point: each finished chunk is written to
+            `<dir>/chunk_<i>.npz`, and a rerun of the same sweep (same
+            tables, grid, configuration and chunking, pinned by a signature
+            in `<dir>/manifest.json`) loads it instead of running it.  A
+            different sweep in the same directory raises ValueError.
+
+    Returns:
+        `RunResult` of numpy arrays with a leading cell axis on every field.
+    """
+    if cell_mode not in ("vmap", "map"):
+        raise ValueError("cell_mode must be 'vmap' or 'map'")
+    device = resolve_device(device)
+    tables = torch.as_tensor(tables, dtype=torch.float32, device=device)
+    table_idx = np.asarray(table_idx, np.int64)
+    start_tokens = np.asarray(start_tokens, np.int64)
+    signal_strengths = np.asarray(signal_strengths, np.float32)
+    seeds = np.asarray(seeds, np.int64)
+
+    n = len(table_idx)
+    if chunk_size is None or chunk_size >= n:
+        chunk_size = None  # one exact-size batch, no padding
+        chunks = [(0, n)]
+    else:
+        chunks = [(i, min(i + chunk_size, n)) for i in range(0, n, chunk_size)]
+    if checkpoint_dir is not None:
+        _init_checkpoint_dir(
+            checkpoint_dir,
+            _sweep_signature(
+                cfg, chunk_size, tables, table_idx, start_tokens, signal_strengths, seeds
+            ),
+        )
+
+    results = []
+    for ci, (lo, hi) in enumerate(chunks):
+        if checkpoint_dir is not None:
+            chunk_path = _checkpoint_chunk_path(checkpoint_dir, ci)
+            if os.path.exists(chunk_path):
+                with np.load(chunk_path) as data:
+                    results.append(RunResult(**{k: data[k] for k in data.files}))
+                continue
+        idx = np.arange(lo, hi)
+        if chunk_size is not None and len(idx) < chunk_size:
+            idx = np.concatenate([idx, np.zeros(chunk_size - len(idx), np.int64)])
+        out = _run_chunk(
+            tables, table_idx[idx], start_tokens[idx], signal_strengths[idx], seeds[idx],
+            cfg, device, cell_mode,
+        )
+        out = RunResult(*(x[: hi - lo].cpu().numpy() for x in out))
+        if checkpoint_dir is not None:
+            # A crash mid-save must not leave a readable partial chunk.
+            tmp = chunk_path + ".tmp.npz"
+            np.savez(tmp, **out._asdict())
+            os.replace(tmp, chunk_path)
+        results.append(out)
+    if len(results) == 1:
+        return results[0]
+    return RunResult(*(np.concatenate(xs, axis=0) for xs in zip(*results)))
+
+
+def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, seed_arr) -> str:
+    """Stable signature of everything that determines a sweep's results.
+
+    Each landscape used enters as a content fingerprint of its table (sum,
+    sum of squares and first element in f32, reduced on the device and
+    fetched once), so two tables of one shape that differ only in values
+    give different signatures.  Reductions are deterministic per device
+    type, so resuming on another (CPU vs CUDA) is treated as another sweep.
+    """
+    used = np.unique(table_idx)
+    rows = tables[torch.as_tensor(used, device=tables.device)]
+    stats = torch.stack([rows.sum(dim=1), (rows * rows).sum(dim=1), rows[:, 0]], dim=1)
+    fingerprints = {
+        int(i): row.tobytes().hex() for i, row in zip(used, stats.cpu().numpy())
+    }
+    h = hashlib.sha256()
+    h.update(
+        json.dumps(
+            {
+                "algorithm": "adalead",
+                "cfg": cfg._asdict(),
+                "chunk_size": chunk_size,
+                "fitness_fn": f"{_indexed_table_fitness.__module__}."
+                f"{_indexed_table_fitness.__qualname__}",
+                "tables": [list(tables.shape), str(tables.dtype), str(tables.device.type)],
+                "fingerprints": fingerprints,
+            },
+            sort_keys=True,
+        ).encode()
+    )
+    for arr in (table_idx, start_tokens, ss_arr, seed_arr):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def _checkpoint_chunk_path(checkpoint_dir: str, i: int) -> str:
+    return os.path.join(checkpoint_dir, f"chunk_{i:05d}.npz")
+
+
+def _init_checkpoint_dir(checkpoint_dir: str, signature: str) -> None:
+    """Create the dir and pin the sweep signature; reject a mismatched resume."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    manifest = os.path.join(checkpoint_dir, "manifest.json")
+    if os.path.exists(manifest):
+        try:
+            with open(manifest) as f:
+                prev = json.load(f)
+        except (json.JSONDecodeError, OSError) as e:
+            raise ValueError(
+                f"checkpoint_dir {checkpoint_dir!r} has a corrupt "
+                "manifest.json (interrupted initialization?); clear the "
+                "directory and rerun"
+            ) from e
+        if prev.get("signature") != signature:
+            raise ValueError(
+                f"checkpoint_dir {checkpoint_dir!r} holds chunks of a "
+                "DIFFERENT sweep (landscapes/grid/model/budget changed); "
+                "clear it or point at a fresh directory"
+            )
+    else:
+        # Atomic write: a crash mid-write must not leave a truncated
+        # manifest that poisons every future resume.
+        tmp = manifest + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"signature": signature}, f)
+        os.replace(tmp, manifest)
+
+
+def _summary_df(result, cells) -> pd.DataFrame:
+    """Per-cell summary rows, in the JAX package's columns, dtypes and order.
+
+    `cells` yields (landscape_name, start, signal_strength, seed) per
+    leading result row; result rows beyond len(cells) are dropped.
+    """
+    truth = np.where(result.proposal_valid, result.proposal_truth, -np.inf)
+    max_fitness = np.maximum(truth.max(axis=(1, 2)), result.start_truth)
+    return pd.DataFrame(
+        [
+            {
+                "landscape": ln,
+                "start": st,
+                "signal_strength": ss,
+                "seed": sd,
+                "max_fitness": float(max_fitness[i]),
+                "start_fitness": float(result.start_truth[i]),
+                "model_cost": int(result.model_cost[i, -1]),
+                "landscape_cost": int(result.landscape_cost[i, -1]),
+            }
+            for i, (ln, st, ss, sd) in enumerate(cells)
+        ]
+    )
+
+
+def _check_ported(mesh, algorithm, algorithm_kwargs, model) -> None:
+    """Raise for the sweep options that are not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sweeps over several devices) is not ported yet (ROADMAP.md, item 17)"
+        )
+    if algorithm != "adalead" or algorithm_kwargs:
+        raise NotImplementedError(
+            "sweeps of other fused algorithms (algorithm=, algorithm_kwargs=) are "
+            "not ported yet (ROADMAP.md, item 16)"
+        )
+    if model == "surrogate":
+        raise NotImplementedError(
+            "model='surrogate' is not ported yet (ROADMAP.md, item 15)"
+        )
+    if model not in ("nam", "perfect"):
+        raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
+
+
+class SweepCell(NamedTuple):
+    """One sweep cell: landscape name, start, signal strength, seed."""
+
+    landscape: str
+    start: str
+    signal_strength: float
+    seed: int
+
+
+def run_robustness_sweep(
+    landscape_names: Sequence[str],
+    starts: Sequence[str],
+    signal_strengths: Sequence[float] = (0.0, 0.5, 0.75, 0.9, 1.0),
+    seeds: Sequence[int] = (0,),
+    rounds: int = 10,
+    sequences_batch_size: int = 100,
+    model_queries_per_batch: int = 2000,
+    mesh=None,
+    alphabet="TGCA",
+    chunk_size: Optional[int] = None,
+    algorithm: str = "adalead",
+    algorithm_kwargs: Optional[dict] = None,
+    model: str = "nam",
+    checkpoint_dir: Optional[str] = None,
+    cell_mode: str = "vmap",
+    device=None,
+) -> pd.DataFrame:
+    """Robustness evaluator over TF-binding landscapes as one sweep.
+
+    The device analog of reference evaluate.robustness (evaluate.py:8-37)
+    crossed with the landscape/start grid of the paper's cloud runner.
+    Returns a summary DataFrame with one row per cell (max/start fitness,
+    costs), in the JAX package's columns and cell order (landscape, then
+    start, signal strength, seed).
+
+    `model` is "nam" (sweeps `signal_strengths`) or "perfect".  `cell_mode`
+    "vmap" runs each chunk in lockstep, "map" runs its cells one by one;
+    scores are identical.  `chunk_size`, `device` and `checkpoint_dir` are
+    those of `sweep_adalead_nam`.  Not ported yet, and raising
+    NotImplementedError: `mesh` (ROADMAP item 17), other `algorithm`s or
+    `algorithm_kwargs` (item 16) and model="surrogate" (item 15, which
+    brings the JAX signature's `surrogate_spec` and `cell_mode="auto"`).
+    """
+    _check_ported(mesh, algorithm, algorithm_kwargs, model)
+    device = resolve_device(device)
+    alpha: Alphabet = as_alphabet(alphabet)
+    names, tables = tf_binding._device_tables(device)
+    name_to_idx = {n: i for i, n in enumerate(names)}
+
+    cells: List[SweepCell] = [
+        SweepCell(ln, st, ss, sd)
+        for ln in landscape_names
+        for st in starts
+        for ss in signal_strengths
+        for sd in seeds
+    ]
+    table_idx = np.array([name_to_idx[c.landscape] for c in cells], np.int64)
+    start_tokens = alpha.encode([c.start for c in cells])
+    ss_arr = np.array([c.signal_strength for c in cells], np.float32)
+    seed_arr = np.array([c.seed for c in cells], np.int64)
+
+    cfg = AdaleadConfig(
+        rounds=rounds,
+        sequences_batch_size=sequences_batch_size,
+        model_queries_per_batch=model_queries_per_batch,
+        alphabet_size=len(alpha),
+        perfect_model=(model == "perfect"),
+    )
+    result = sweep_adalead_nam(
+        tables, table_idx, start_tokens, ss_arr, seed_arr, cfg,
+        chunk_size=chunk_size, device=device, cell_mode=cell_mode,
+        checkpoint_dir=checkpoint_dir,
+    )
+    return _summary_df(result, cells)
+
+
+def run_efficiency_sweep(
+    landscape_names: Sequence[str],
+    starts: Sequence[str],
+    budgets: Sequence[Tuple[int, int]] = (
+        (100, 500),
+        (100, 5000),
+        (1000, 5000),
+        (1000, 10000),
+    ),
+    signal_strength: float = 0.9,
+    seeds: Sequence[int] = (0,),
+    rounds: int = 10,
+    mesh=None,
+    chunk_size: Optional[int] = None,
+    algorithm: str = "adalead",
+    algorithm_kwargs: Optional[dict] = None,
+    model: str = "nam",
+    device=None,
+) -> pd.DataFrame:
+    """Efficiency evaluator as sweeps (reference evaluate.py:40-74).
+
+    Each (sequences_batch_size, model_queries_per_batch) pair sweeps its
+    landscape x start x seed grid; the options are `run_robustness_sweep`'s.
+    """
+    frames = []
+    for sequences_batch_size, model_queries_per_batch in budgets:
+        df = run_robustness_sweep(
+            landscape_names=landscape_names,
+            starts=starts,
+            signal_strengths=[signal_strength],
+            seeds=seeds,
+            rounds=rounds,
+            sequences_batch_size=sequences_batch_size,
+            model_queries_per_batch=model_queries_per_batch,
+            mesh=mesh,
+            chunk_size=chunk_size,
+            algorithm=algorithm,
+            algorithm_kwargs=algorithm_kwargs,
+            model=model,
+            device=device,
+        )
+        df["sequences_batch_size"] = sequences_batch_size
+        df["model_queries_per_batch"] = model_queries_per_batch
+        frames.append(df)
+    return pd.concat(frames, ignore_index=True)
+
+
+def run_adaptivity_sweep(
+    landscape_names: Sequence[str],
+    starts: Sequence[str],
+    num_rounds: Sequence[int] = (1, 10, 100),
+    total_ground_truth_measurements: int = 1000,
+    total_model_queries: int = 10000,
+    signal_strength: float = 0.9,
+    seeds: Sequence[int] = (0,),
+    mesh=None,
+    chunk_size: Optional[int] = None,
+    algorithm: str = "adalead",
+    algorithm_kwargs: Optional[dict] = None,
+    model: str = "nam",
+    device=None,
+) -> pd.DataFrame:
+    """Adaptivity evaluator as sweeps (reference evaluate.py:77-112).
+
+    A fixed total budget is split across 1/10/100 rounds; each split sweeps
+    its grid; the options are `run_robustness_sweep`'s.
+    """
+    frames = []
+    for rounds in num_rounds:
+        df = run_robustness_sweep(
+            landscape_names=landscape_names,
+            starts=starts,
+            signal_strengths=[signal_strength],
+            seeds=seeds,
+            rounds=rounds,
+            sequences_batch_size=int(total_ground_truth_measurements / rounds),
+            model_queries_per_batch=int(total_model_queries / rounds),
+            mesh=mesh,
+            chunk_size=chunk_size,
+            algorithm=algorithm,
+            algorithm_kwargs=algorithm_kwargs,
+            model=model,
+            device=device,
+        )
+        df["rounds"] = rounds
+        frames.append(df)
+    return pd.concat(frames, ignore_index=True)

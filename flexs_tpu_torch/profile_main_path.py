@@ -6,20 +6,30 @@ Runs DeviceAdaleadNAM on RNABinding L100_RNA1 (100 proposals x 2000 model
 queries per round, NAM at signal strength 0.9, seed 0) four times: once
 to warm up (it builds and loads the kernel), once timed without the
 profiler, once under `torch.profiler` for the kernels, and once more
-under it with a span around each layer of the run.  Prints one JSON
-line: the walls, the summed device time of all kernels, the device's
-idle share (1 - kernel time / wall; kernels run on one stream, so they
-never overlap) against the profiled and the unprofiled wall, the duplex
-kernel's launches and device time, the top kernels by device time, and
-each span's calls and host seconds (a span's time includes the spans
-nested in it; the spans slow the run, so compare spans with each other
-and with the spanned wall).  The spans are added here, for that run
-only, by replacing each attribute in SPANS; the package itself carries no
-instrumentation.  The script fails if a span's attribute is gone or the
-run never called it, so a renamed method cannot drop out of the table.
+under it with a span around each layer of the run.  Then it runs one
+40-cell chunk of the TF-Bind-8 robustness sweep (8 landscapes x 5 signal
+strengths, the same per-cell configuration, as `chip_smoke.py` runs it):
+once to warm up at one round, once timed, and once more with the profiler
+on for its last two rounds only, where the caches and so the distance
+matrices are widest (all ten rounds make a million profiler events, which
+take minutes to process).  The chunk's device time and idle share are
+read from that window; its host syncs and draw calls from the timed run.
+Prints one JSON line: the walls, the summed device time of all kernels,
+the device's idle share (1 - kernel time / wall; kernels run on one
+stream, so they never overlap) against the profiled and the unprofiled
+wall, the duplex kernel's launches and device time, the top kernels by
+device time, each span's calls and host seconds (a span's time includes
+the spans nested in it; the spans slow the run, so compare spans with each
+other and with the spanned wall), and for the sweep chunk its host syncs
+and the calls and host seconds of its per-cell random draws.  The spans
+are added here, for that run only, by replacing each attribute in SPANS;
+the package itself carries no instrumentation.  The script fails if a
+span's attribute is gone or the run never called it, so a renamed method
+cannot drop out of the table.
 """
 import contextlib
 import functools
+import itertools
 import json
 import time
 
@@ -27,12 +37,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import flexs_tpu_torch as flexs
-from flexs_tpu_torch.landscapes import rna
+from flexs_tpu_torch.landscapes import rna, tf_binding
 from flexs_tpu_torch.ops import cuda_duplex, packed_hamming
+from flexs_tpu_torch.parallel import run_robustness_sweep
 from flexs_tpu_torch.runtime import jit_runner
 
 ROUNDS = 10  # the main path's full run, as chip_smoke.py drives it
 TOP_KERNELS = 12
+SWEEP_CHUNK_LANDSCAPES = 8  # x 5 signal strengths: one chunk of chip_smoke.py's sweep
+PROFILED_ROUNDS = 2  # the chunk's last rounds, profiled
+DRAW_OPS = ("aten::exponential_", "aten::random_", "aten::uniform_", "aten::randperm")
 
 # Span label -> (owner, attribute).  Callers look these up on the owner at
 # call time, so replacing the attribute puts the span around every call.
@@ -79,6 +93,92 @@ def _timed_run(runner) -> float:
     return time.perf_counter() - t0
 
 
+def device_kernels(events):
+    """The entries of `prof.key_averages()` that are kernels on the card, longest first."""
+    kernels = [
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return kernels
+
+
+def top_kernels(kernels):
+    return [
+        {"name": e.key[:80], "count": e.count, "device_s": e.self_device_time_total / 1e6}
+        for e in kernels[:TOP_KERNELS]
+    ]
+
+
+@contextlib.contextmanager
+def before_each_round(fn):
+    """Call `fn(k)` before the k-th call of `_Run.round` (from 0) while inside."""
+    original = jit_runner._Run.round
+    calls = itertools.count()
+
+    @functools.wraps(original)
+    def round_(run):
+        fn(next(calls))
+        return original(run)
+
+    jit_runner._Run.round = round_
+    try:
+        yield
+    finally:
+        jit_runner._Run.round = original
+
+
+def sweep_chunk_profile() -> dict:
+    """Wall, device time and random-draw cost of one 40-cell sweep chunk."""
+    names = list(tf_binding.registry())[:SWEEP_CHUNK_LANDSCAPES]
+    first_profiled = ROUNDS - PROFILED_ROUNDS
+
+    def chunk(on_window=None, rounds=ROUNDS):
+        """(wall, wall of the last PROFILED_ROUNDS rounds) of one chunk."""
+        window = {}
+
+        def mark(k):
+            if k == first_profiled:
+                torch.cuda.synchronize()
+                window["t0"] = time.perf_counter()
+                if on_window is not None:
+                    on_window()
+
+        t0 = time.perf_counter()
+        with before_each_round(mark):
+            run_robustness_sweep(names, tf_binding.STARTS[:1], rounds=rounds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        return t1 - t0, t1 - window.get("t0", t0)
+
+    chunk(rounds=1)  # warm-up
+    jit_runner.reset_run_counts()
+    wall, window_wall = chunk()
+    counts = dict(jit_runner.run_counts)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, profiled_window_wall = chunk(on_window=prof.start)
+    prof.stop()
+    events = prof.key_averages()
+    kernels = device_kernels(events)
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    draws = [e for e in events if e.key in DRAW_OPS]
+    return {
+        "cells": 5 * len(names),
+        "wall_s": wall,
+        "profiled_rounds": PROFILED_ROUNDS,
+        "window_wall_s": window_wall,
+        "profiled_window_wall_s": profiled_window_wall,
+        "device_kernel_s": device_s,
+        "device_idle_share": 1 - device_s / profiled_window_wall if device_s else None,
+        "device_idle_share_vs_unprofiled_wall": 1 - device_s / window_wall if device_s else None,
+        "kernel_launches_total": sum(e.count for e in kernels),
+        "host_syncs": counts["syncs"],  # of the whole timed chunk
+        "draw_calls": counts["draw_calls"],
+        "draw_ops": {e.key: {"calls": e.count, "host_s": e.cpu_time_total / 1e6} for e in draws},
+        "top_kernels": top_kernels(kernels),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA card")
@@ -97,11 +197,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall = _timed_run(runner)
     duplex_launches = cuda_duplex.launches
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kernels = device_kernels(prof.key_averages())
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     # The main path's kernel is a template (duplex_dp_kernel<M, K>); the
     # row-cost builds' untemplated kernel of the same name never runs here.
@@ -134,10 +230,8 @@ def main() -> int:
         "duplex_launches": duplex_launches,
         "duplex_device_s": sum(e.self_device_time_total for e in duplex) / 1e6,
         "spans": spans,
-        "top_kernels": [
-            {"name": e.key[:80], "count": e.count, "device_s": e.self_device_time_total / 1e6}
-            for e in kernels[:TOP_KERNELS]
-        ],
+        "top_kernels": top_kernels(kernels),
+        "tf_binding_sweep_chunk": sweep_chunk_profile(),
     }))
     return 0
 

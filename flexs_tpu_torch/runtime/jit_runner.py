@@ -17,23 +17,36 @@ Semantics mirror the host classes they fuse (cited against the reference):
     start; each round proposes the top-B generated by model score,
     measures truth and appends to the measured set.
 
-The three data-dependent loops (mutant tries, rollouts, budget passes) are
-Python loops.  Their conditions read host counters (cache size, costs,
-alive rows) that each step fetches with one device sync, and the cache
-distance matrices cover only the filled rows.  Buffers are updated in
-place.  Randomness is one `torch.Generator` on the run's device, so runs
-are distributional matches of the JAX package's, not bitwise.  Documented
-micro-deviations from the host classes (shared with the JAX runner):
-duplicate rows inside one query batch each draw independent noise;
-within-batch novelty dedup resolves in one pass; novelty rejection checks
-the cross-round NAM cache; and the runner proposes exactly
-`sequences_batch_size` sequences via top-k, where the host explorers keep
-the reference's B-1 `argsort(preds)[:-B:-1]` idiom.
+The runner advances C cells (each its own landscape params, start, signal
+strength and generator) in lockstep on a leading cell axis, the schedule
+the JAX package's sweep gets from `jax.vmap`: each of the three
+data-dependent loops (mutant tries, rollouts, budget passes) runs while
+any cell's condition holds, and a cell whose condition is false changes no
+state and draws nothing.  A single run is the C = 1 case.  Loop control is
+on the host: each step fetches the cells' counters (cache sizes, costs,
+alive rows) with one device sync, and the device keeps its own copy of
+every counter a mask reads, so no step copies a host value to the device.
+Distances cover the cache rows up to the largest filled count, with each
+cell's unfilled rows masked.  Buffers are updated in place.
+
+Randomness is one `torch.Generator` per cell, on the run's device.  A cell
+draws only while it is live, in the same shapes and order whatever C is,
+and every per-element computation is the same for each cell, so a cell's
+result depends only on its own (params, start, signal strength, seed):
+not on its neighbours or on C.  Runs are distributional matches of the JAX
+package's, not bitwise.  Documented micro-deviations from the host classes
+(shared with the JAX runner): duplicate rows inside one query batch each
+draw independent noise; within-batch novelty dedup resolves in one pass;
+novelty rejection checks the cross-round NAM cache; and the runner
+proposes exactly `sequences_batch_size` sequences (highest model score
+first, lowest generation index first among equal scores, as `lax.top_k`
+orders them), where the host explorers keep the reference's B-1
+`argsort(preds)[:-B:-1]` idiom.
 """
 import time
 import warnings
 from datetime import datetime
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -43,6 +56,7 @@ from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.explorer import write_run_log
 from flexs_tpu_torch.ops import packed_hamming
+from flexs_tpu_torch.utils import sequence_utils
 
 
 class AdaleadConfig(NamedTuple):
@@ -65,7 +79,10 @@ class AdaleadConfig(NamedTuple):
 
 
 class RunResult(NamedTuple):
-    """Stacked per-round outputs of a run (tensors on the run's device)."""
+    """Stacked per-round outputs of a run (tensors on the run's device).
+
+    `run_adalead_nam_cells` adds a leading cell axis to every field.
+    """
 
     proposal_tokens: torch.Tensor  # int64[rounds, B, L]
     proposal_preds: torch.Tensor  # f32[rounds, B]
@@ -76,219 +93,326 @@ class RunResult(NamedTuple):
     start_truth: torch.Tensor  # f32[]
 
 
-def _masked_append(buf, rows, n: int, mask, aux_bufs=(), aux_rows=()):
-    """Write `rows[mask]` into `buf` from row `n` on, in order, in place.
+# Host syncs, per-cell random draw calls and runs of `run_adalead_nam_cells`
+# since the last `reset_run_counts()`; chip_smoke.py and profile_main_path
+# read them.
+run_counts = {"runs": 0, "syncs": 0, "draw_calls": 0}
 
-    Rows with mask=False go to the trash row (the buffers' last row), since
-    torch has no dropping scatter.  Returns the row positions written.
+
+def reset_run_counts() -> None:
+    for key in run_counts:
+        run_counts[key] = 0
+
+
+def cell_axis_oracle(fitness_fn: Callable) -> Callable:
+    """Lift a `(params, int64[B, L]) -> f32[B]` oracle onto the cell axis.
+
+    The lifted oracle scores int64[C, B, L] as one batch of C * B rows
+    against the same params and returns f32[C, B].
     """
-    count = torch.cumsum(mask.long(), dim=0)
-    pos = torch.where(mask, n + count - 1, buf.shape[0] - 1)
-    buf[pos] = rows
+
+    def cells(params, tokens):
+        c, b, length = tokens.shape
+        return fitness_fn(params, tokens.reshape(c * b, length)).reshape(c, b)
+
+    return cells
+
+
+def _scatter_rows(buf, pos, rows):
+    """buf[c, pos[c, i]] = rows[c, i] for every cell c and row i, in place."""
+    index = pos.reshape(pos.shape + (1,) * (rows.dim() - 2)).expand(rows.shape)
+    buf.scatter_(1, index, rows)
+
+
+def _masked_append(buf, rows, n, mask, aux_bufs=(), aux_rows=()):
+    """Write each cell's `rows[c][mask[c]]` into `buf[c]` from row `n[c]` on, in place.
+
+    buf: [C, cap, ...]; rows: [C, m, ...]; n: int64[C]; mask: bool[C, m].
+    Rows with mask=False go to the cell's trash row (its last row, never
+    read), since torch has no dropping scatter.  Returns the row positions
+    written.
+    """
+    count = torch.cumsum(mask.long(), dim=1)
+    pos = torch.where(mask, n[:, None] + count - 1, buf.shape[1] - 1)
+    _scatter_rows(buf, pos, rows)
     for b, r in zip(aux_bufs, aux_rows):
-        b[pos] = r
+        _scatter_rows(b, pos, r)
     return pos
 
 
 class _Run:
-    """State and steps of one run; `run_adalead_nam` drives it."""
+    """State and steps of C cells run in lockstep; `run_adalead_nam_cells` drives it.
 
-    def __init__(self, fitness_fn, fitness_params, start_tokens, cfg, ss, gen):
+    Per-cell counters live twice: as host lists, which drive the loops and
+    the draws, and as int64[C] device tensors, which the masks read.  Where
+    every cell is live (always, at C = 1), the masks and zero-fills that
+    only matter for a finished cell are skipped.
+    """
+
+    def __init__(self, fitness_fn, fitness_params, start_tokens, cfg, ss, gens):
         self.fitness_fn = fitness_fn
         self.fitness_params = fitness_params
         self.cfg = cfg
-        self.gen = gen
+        self.gens = gens
         dev = self.dev = start_tokens.device
         B, R = cfg.sequences_batch_size, cfg.rounds
         budget = cfg.model_queries_per_batch
-        self.L = L = start_tokens.shape[0]
-        self.ss = torch.tensor(ss, dtype=torch.float32, device=dev)
+        self.C, self.L = C, L = start_tokens.shape
+        self.cells = torch.arange(C, device=dev)[:, None]
+        self.all_rows = torch.ones((C, B), dtype=torch.bool, device=dev)
         self.bits, self.per_word, words = packed_hamming.packing_spec(
             L, cfg.alphabet_size
         )
+        # NAM alpha = ss ** distance for distances 0..L, one pow per cell so
+        # that no cell's table depends on where it sits among the others.
+        dist = torch.arange(L + 1, dtype=torch.float32, device=dev)
+        self.alpha = torch.stack([torch.pow(ss[c], dist) for c in range(C)])
 
         measured_cap = 1 + R * B + 1  # +1 trash row
         cache_cap = 1 + R * (budget + 2 * B) + 1
         self.gen_cap = budget + 2 * B + 1
 
         start = start_tokens.long()
-        self.start_truth = fitness_fn(fitness_params, start[None])[0]
+        self.start_truth = fitness_fn(fitness_params, start[:, None])[:, 0]
 
-        self.measured_tokens = torch.zeros((measured_cap, L), dtype=torch.long, device=dev)
-        self.measured_truth = torch.full((measured_cap,), -torch.inf, device=dev)
-        self.measured_tokens[0] = start
-        self.measured_truth[0] = self.start_truth
-        self.n_measured = 1
+        self.measured_tokens = torch.zeros((C, measured_cap, L), dtype=torch.long, device=dev)
+        self.measured_truth = torch.full((C, measured_cap), -torch.inf, device=dev)
+        self.measured_tokens[:, 0] = start
+        self.measured_truth[:, 0] = self.start_truth
+        self.n_measured = torch.ones(C, dtype=torch.long, device=dev)
 
-        self.cache_pk = torch.zeros((cache_cap, words), dtype=torch.long, device=dev)
-        self.cache_vals = torch.zeros((cache_cap,), device=dev)
+        self.cache_pk = torch.zeros((C, cache_cap, words), dtype=torch.long, device=dev)
+        self.cache_vals = torch.zeros((C, cache_cap), device=dev)
         # True fitness of every cache row, recorded at insertion so NAM
         # neighbour lookups never re-run the oracle.
-        self.cache_truth = torch.zeros((cache_cap,), device=dev)
-        self.cache_pk[0] = self.pack(start[None])[0]
-        self.cache_vals[0] = self.start_truth
-        self.cache_truth[0] = self.start_truth
-        self.n_cache = 1
+        self.cache_truth = torch.zeros((C, cache_cap), device=dev)
+        self.cache_pk[:, 0] = self.pack(start)
+        self.cache_vals[:, 0] = self.start_truth
+        self.cache_truth[:, 0] = self.start_truth
+        self.n_cache = [1] * C
+        self.model_cost = [0] * C
+        self.landscape_cost = [1] * C  # the start's measurement
+        # Device copies, one tensor so that a query updates both in one op.
+        self.counts_t = torch.tensor([[0] * C, [1] * C], dtype=torch.long, device=dev)
+        self.model_cost_t, self.n_cache_t = self.counts_t
 
-        self.model_cost = 0
-        self.landscape_cost = 1  # the start's measurement
+    def fetch(self, values):
+        """The step's one device->host sync: `values` as nested lists."""
+        run_counts["syncs"] += 1
+        return values.tolist()
+
+    def live_gens(self, live, draws: int):
+        """(cell, generator) of each live cell, counting `draws` calls for each."""
+        gens = [(c, g) for c, (g, on) in enumerate(zip(self.gens, live)) if on]
+        run_counts["draw_calls"] += draws * len(gens)
+        return gens
+
+    def draw_buffers(self, gens, shape, *dtypes):
+        """A buffer of each dtype for one draw per cell; rows of cells not drawing read 0."""
+        fill = torch.empty if len(gens) == self.C else torch.zeros
+        return [fill(shape, dtype=dtype, device=self.dev) for dtype in dtypes]
 
     def pack(self, tokens):
         return packed_hamming.pack_tokens(tokens, self.cfg.alphabet_size, length=self.L)
 
     def dists_to_cache(self, packed):
-        """Hamming distances int32[B, n_cache] to the filled cache rows."""
-        return packed_hamming.packed_hamming_matrix(
-            packed, self.cache_pk[: self.n_cache], self.bits, self.per_word
-        )
+        """Hamming distances int32[C, m, N] to the cache rows, N the largest fill.
 
-    def nam_query(self, tokens, mask):
+        A cell's rows past its own fill read L + 1, above any distance, so
+        min and first-index argmin see only its filled rows.
+        """
+        n_max = max(self.n_cache)
+        dists = packed_hamming.packed_hamming_matrix(
+            packed, self.cache_pk[:, :n_max], self.bits, self.per_word
+        )
+        if min(self.n_cache) == n_max:
+            return dists
+        filled = torch.arange(n_max, device=self.dev) < self.n_cache_t[:, None]
+        return torch.where(filled[:, None, :], dists, self.L + 1)
+
+    def nam_query(self, tokens, mask, live):
         """Score `tokens[mask]` through the model; returns (values, cache positions).
 
-        Cached rows return their cached value (1 model cost); uncached rows
-        run the NAM corruption (1 model + 2 landscape costs, or 1 model cost
-        for a perfect model) and are inserted into the cache.
+        tokens int64[C, m, L]; mask bool[C, m], False in every row of a cell
+        that is not `live`.  Cached rows return their cached value (1 model
+        cost); uncached rows run the NAM corruption (1 model + 2 landscape
+        costs, or 1 model cost for a perfect model) and are inserted into
+        the cache.
         """
-        n = tokens.shape[0]
+        C, m = mask.shape
         pk = self.pack(tokens)
         dists = self.dists_to_cache(pk)
-        min_dist = dists.amin(dim=1)
-        nearest = dists.argmin(dim=1)
+        min_dist = dists.amin(dim=2)
+        nearest = dists.argmin(dim=2)
         cached = min_dist == 0
-        cached_vals = self.cache_vals[nearest]
+        cached_vals = self.cache_vals.gather(1, nearest)
         signal = self.fitness_fn(self.fitness_params, tokens)
 
         if self.cfg.perfect_model:
             values = torch.where(cached, cached_vals, signal)
         else:
-            neighbor_truth = self.cache_truth[nearest]
-            expo = torch.empty(n, device=self.dev).exponential_(1.0, generator=self.gen)
-            rand_idx = torch.randint(
-                0, self.n_cache, (n,), generator=self.gen, device=self.dev
-            )
+            neighbor_truth = self.cache_truth.gather(1, nearest)
+            gens = self.live_gens(live, draws=2)
+            expo, rand_idx = self.draw_buffers(gens, (C, m), torch.float32, torch.long)
+            for c, g in gens:
+                expo[c].exponential_(1.0, generator=g)
+                rand_idx[c].random_(0, self.n_cache[c], generator=g)
             noise = torch.where(
-                neighbor_truth >= 0, expo * neighbor_truth, self.cache_vals[rand_idx]
+                neighbor_truth >= 0, expo * neighbor_truth, self.cache_vals.gather(1, rand_idx)
             )
-            alpha = torch.pow(self.ss, min_dist.float())
+            alpha = self.alpha.gather(1, min_dist.long())
             nam_vals = alpha * signal + (1 - alpha) * noise
             values = torch.where(cached, cached_vals, nam_vals)
 
         insert = mask & ~cached
         pos = _masked_append(
-            self.cache_pk, pk, self.n_cache, insert,
+            self.cache_pk, pk, self.n_cache_t, insert,
             aux_bufs=(self.cache_vals, self.cache_truth), aux_rows=(values, signal),
         )
         # Cached rows' "position" is their existing cache slot.
         pos = torch.where(cached, nearest, pos)
 
-        n_mask, n_insert = torch.stack([mask.sum(), insert.sum()]).tolist()
-        self.n_cache += n_insert
-        self.model_cost += n_mask
-        if not self.cfg.perfect_model:
-            self.landscape_cost += 2 * n_insert
+        sums = torch.stack([mask.sum(dim=1), insert.sum(dim=1)])
+        self.counts_t += sums
+        n_mask, n_insert = self.fetch(sums)
+        for c in range(C):
+            self.model_cost[c] += n_mask[c]
+            self.n_cache[c] += n_insert[c]
+            if not self.cfg.perfect_model:
+                self.landscape_cost[c] += 2 * n_insert[c]
         return values, pos
 
     def novel_mutants(self, tokens, alive):
-        """One novel mutant per alive row, bounded vectorized rejection."""
+        """One novel mutant per alive row, bounded vectorized rejection.
+
+        A cell draws in a try only while it has alive rows without a mutant.
+        """
         cfg = self.cfg
         mu_per_res = cfg.mu / self.L
+        B = tokens.shape[1]
         result = tokens
-        found = torch.zeros(tokens.shape[0], dtype=torch.bool, device=self.dev)
+        found = torch.zeros(alive.shape, dtype=torch.bool, device=self.dev)
+        earlier_rows = torch.tril(
+            torch.ones((B, B), dtype=torch.bool, device=self.dev), diagonal=-1
+        )
         for _ in range(cfg.mutant_tries):
             todo = alive & ~found
-            if not bool(todo.any()):
+            live = self.fetch(todo.any(dim=1))
+            if not any(live):
                 break
-            mut_mask = torch.rand(tokens.shape, generator=self.gen, device=self.dev) < mu_per_res
-            rand = torch.randint(
-                0, cfg.alphabet_size, tokens.shape, generator=self.gen, device=self.dev
-            )
-            cand = torch.where(mut_mask, rand, tokens)
+            gens = self.live_gens(live, draws=2)
+            draw, rand = self.draw_buffers(gens, tokens.shape, torch.float32, tokens.dtype)
+            for c, g in gens:
+                draw[c].uniform_(0, 1, generator=g)
+                rand[c].random_(0, cfg.alphabet_size, generator=g)
+            cand = torch.where(draw < mu_per_res, rand, tokens)
 
             cand_pk = self.pack(cand)
-            novel = self.dists_to_cache(cand_pk).amin(dim=1) > 0
+            novel = self.dists_to_cache(cand_pk).amin(dim=2) > 0
             # Within-batch dedup: reject a row equal to an earlier accepted
             # candidate or to any already-found result.
-            eq_self = (cand_pk[:, None, :] == cand_pk[None, :, :]).all(dim=-1)
-            earlier = (
-                torch.tril(torch.ones_like(eq_self), diagonal=-1)
-                & eq_self
-                & (todo & novel)[None, :]
-            )
+            rows_pk = cand_pk.unsqueeze(2)
+            eq_self = (rows_pk == cand_pk.unsqueeze(1)).all(dim=-1)
+            earlier = earlier_rows & eq_self & (todo & novel).unsqueeze(1)
             res_pk = self.pack(result)
-            eq_res = (cand_pk[:, None, :] == res_pk[None, :, :]).all(dim=-1)
-            dup_found = (eq_res & found[None, :]).any(dim=1)
+            eq_res = (rows_pk == res_pk.unsqueeze(1)).all(dim=-1)
+            dup_found = (eq_res & found.unsqueeze(1)).any(dim=2)
 
-            accept = todo & novel & ~earlier.any(dim=1) & ~dup_found
-            result = torch.where(accept[:, None], cand, result)
+            accept = todo & novel & ~earlier.any(dim=2) & ~dup_found
+            result = torch.where(accept.unsqueeze(2), cand, result)
             found = found | accept
         return result, found
 
-    def recombine(self, tokens):
-        perm = torch.randperm(tokens.shape[0], generator=self.gen, device=self.dev)
-        shuffled = tokens[perm]
-        pairs = tokens.shape[0] // 2
-        a = shuffled[0 : 2 * pairs : 2]
-        b = shuffled[1 : 2 * pairs : 2]
-        crossover = (
-            torch.rand(a.shape, generator=self.gen, device=self.dev) < self.cfg.recomb_rate
-        )
-        switch = torch.cumsum(crossover.long(), dim=1) % 2 == 1
-        out = shuffled.clone()
-        out[0 : 2 * pairs : 2] = torch.where(switch, a, b)
-        out[1 : 2 * pairs : 2] = torch.where(switch, b, a)
+    def recombine(self, tokens, live):
+        """One recombination pass over each live cell's rows (reference adalead.py:79-92)."""
+        out = tokens.clone()
+        pairs = tokens.shape[1] // 2
+        for c, g in self.live_gens(live, draws=2):
+            perm = torch.randperm(tokens.shape[1], generator=g, device=self.dev)
+            shuffled = tokens[c][perm]
+            out[c] = shuffled
+            out[c, 0 : 2 * pairs : 2], out[c, 1 : 2 * pairs : 2] = sequence_utils.recombine(
+                g, shuffled[0 : 2 * pairs : 2], shuffled[1 : 2 * pairs : 2],
+                self.cfg.recomb_rate,
+            )
         return out
 
     def round(self):
-        """One propose/measure round; returns its per-round outputs."""
-        cfg, dev = self.cfg, self.dev
-        B, budget = cfg.sequences_batch_size, cfg.model_queries_per_batch
-        round_start_cost = self.model_cost
+        """One propose/measure round of every cell; returns its per-round outputs."""
+        cfg, dev, cells = self.cfg, self.dev, self.cells
+        C, B, budget = self.C, cfg.sequences_batch_size, cfg.model_queries_per_batch
+        round_start = list(self.model_cost)
+        round_start_t = self.model_cost_t.clone()
 
-        # Parent selection (sign-aware threshold + np.resize tiling).
-        truth = self.measured_truth[: self.n_measured]
-        top = truth.max()
+        # Parent selection (sign-aware threshold + np.resize tiling): row
+        # b of a cell's parents is its (b mod n_selected)-th selected row.
+        cap = self.measured_truth.shape[1]
+        filled = torch.arange(cap, device=dev) < self.n_measured[:, None]
+        truth = torch.where(filled, self.measured_truth, -torch.inf)
+        top = truth.amax(dim=1)
         thr = top * (1 - torch.sign(top) * cfg.threshold)
-        sel = torch.nonzero(truth >= thr)[:, 0]
-        parents = self.measured_tokens[sel[torch.arange(B, device=dev) % len(sel)]]
+        selected = torch.cumsum((filled & (truth >= thr[:, None])).long(), dim=1)
+        rank = torch.arange(B, device=dev) % selected[:, -1:] + 1
+        parents = self.measured_tokens[cells, torch.searchsorted(selected, rank)]
 
         # Per-round generated pool.
-        gen_tokens = torch.zeros((self.gen_cap, self.L), dtype=torch.long, device=dev)
-        gen_preds = torch.full((self.gen_cap,), -torch.inf, device=dev)
-        gen_cache_pos = torch.zeros((self.gen_cap,), dtype=torch.long, device=dev)
-        n_gen = 0
+        gen_tokens = torch.zeros((C, self.gen_cap, self.L), dtype=torch.long, device=dev)
+        gen_preds = torch.full((C, self.gen_cap), -torch.inf, device=dev)
+        gen_cache_pos = torch.zeros((C, self.gen_cap), dtype=torch.long, device=dev)
+        n_gen = torch.zeros(C, dtype=torch.long, device=dev)
 
-        all_rows = torch.ones(B, dtype=torch.bool, device=dev)
-        while self.model_cost - round_start_cost < budget:
+        while True:
+            in_pass = [self.model_cost[c] - round_start[c] < budget for c in range(C)]
+            if not any(in_pass):
+                break
+            if all(in_pass):
+                pass_rows = self.all_rows
+            else:
+                pass_rows = (self.model_cost_t - round_start_t < budget)[:, None].expand(C, B)
             # Recombination compounds across budget passes (reference
             # adalead.py:117-118 reassigns parents before each pass).
             for _ in range(cfg.rho):
-                parents = self.recombine(parents)
-            root_vals, _ = self.nam_query(parents, all_rows)
+                parents = self.recombine(parents, in_pass)
+            root_vals, _ = self.nam_query(parents, pass_rows, in_pass)
 
-            alive, tokens, n_alive = all_rows, parents, B
-            while n_alive > 0 and self.model_cost - round_start_cost + n_alive < budget:
+            alive, tokens = pass_rows, parents
+            n_alive = [B if on else 0 for on in in_pass]
+            while True:
+                roll = [
+                    n_alive[c] > 0 and self.model_cost[c] - round_start[c] + n_alive[c] < budget
+                    for c in range(C)
+                ]
+                if not any(roll):
+                    break
+                if not all(roll):
+                    n_alive_t = alive.sum(dim=1)
+                    roll_t = (n_alive_t > 0) & (
+                        self.model_cost_t - round_start_t + n_alive_t < budget
+                    )
+                    alive = alive & roll_t[:, None]
                 children, found = self.novel_mutants(tokens, alive)
-                vals, pos = self.nam_query(children, found)
+                vals, pos = self.nam_query(children, found, roll)
                 _masked_append(
                     gen_tokens, children, n_gen, found,
                     aux_bufs=(gen_preds, gen_cache_pos), aux_rows=(vals, pos),
                 )
+                n_gen += found.sum(dim=1)
                 survive = found & (vals >= root_vals)
-                n_found, n_alive = torch.stack([found.sum(), survive.sum()]).tolist()
-                n_gen += n_found
+                n_alive = self.fetch(survive.sum(dim=1))
                 alive, tokens = survive, children
 
-        # Propose top-B generated by model score, measure truth, append.
+        # Propose each cell's top-B generated by model score (a stable sort:
+        # equal scores keep generation order), measure truth, append.
         masked_preds = torch.where(
-            torch.arange(self.gen_cap, device=dev) < n_gen, gen_preds, -torch.inf
+            torch.arange(self.gen_cap, device=dev) < n_gen[:, None], gen_preds, -torch.inf
         )
-        top_vals, top_idx = torch.topk(masked_preds, B)
+        ranked, order = torch.sort(masked_preds, dim=1, descending=True, stable=True)
+        top_vals, top_idx = ranked[:, :B], order[:, :B]
         valid = torch.isfinite(top_vals)
-        proposals = gen_tokens[top_idx]
+        proposals = gen_tokens[cells, top_idx]
         truth = self.fitness_fn(self.fitness_params, proposals)
         truth = torch.where(valid, truth, -torch.inf)
-        n_valid = int(valid.sum())
-        self.landscape_cost += n_valid
+        n_valid = valid.sum(dim=1)
 
         _masked_append(
             self.measured_tokens, proposals, self.n_measured, valid,
@@ -298,9 +422,54 @@ class _Run:
         # Refresh cache values of measured proposals with the truth (the
         # next round's NAM must return truth for measured sequences).
         # Invalid rows write to the trash row, so no slot is written twice.
-        slots = torch.where(valid, gen_cache_pos[top_idx], self.cache_vals.shape[0] - 1)
-        self.cache_vals[slots] = truth
-        return proposals, top_vals, truth, valid, self.model_cost, self.landscape_cost
+        slots = torch.where(
+            valid, gen_cache_pos[cells, top_idx], self.cache_vals.shape[1] - 1
+        )
+        self.cache_vals[cells, slots] = truth
+        for c, n in enumerate(self.fetch(n_valid)):
+            self.landscape_cost[c] += n
+        return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
+
+
+def run_adalead_nam_cells(
+    fitness_fn: Callable,
+    fitness_params,
+    start_tokens: torch.Tensor,
+    cfg: AdaleadConfig,
+    signal_strengths,
+    generators: Sequence[torch.Generator],
+) -> RunResult:
+    """Run C Adalead + NoisyAbstractModel experiments in lockstep.
+
+    Args:
+        fitness_fn: Pure `(fitness_params, int64[C, B, L]) -> f32[C, B]`
+            oracle on the cell axis (`cell_axis_oracle` lifts a one-batch
+            oracle; the sweep indexes stacked tables).
+        fitness_params: Tensors the oracle reads, on the run's device.
+        start_tokens: int[C, L] starting sequences on the run's device.
+        cfg: Adalead configuration, shared by every cell.
+        signal_strengths: NAM alpha in [0, 1] per cell (C floats).
+        generators: One `torch.Generator` per cell, on the run's device:
+            each cell's only source of randomness.
+
+    Returns:
+        A `RunResult` with a leading cell axis on every field.
+    """
+    dev = start_tokens.device
+    ss = torch.as_tensor(signal_strengths, dtype=torch.float32, device=dev)
+    run_counts["runs"] += 1
+    run = _Run(fitness_fn, fitness_params, start_tokens, cfg, ss, list(generators))
+    outs = [run.round() for _ in range(cfg.rounds)]
+    tokens, preds, truth, valid, model_cost, landscape_cost = zip(*outs)
+    return RunResult(
+        proposal_tokens=torch.stack(tokens, dim=1),
+        proposal_preds=torch.stack(preds, dim=1),
+        proposal_truth=torch.stack(truth, dim=1),
+        proposal_valid=torch.stack(valid, dim=1),
+        model_cost=torch.tensor(model_cost, device=dev).T.contiguous(),
+        landscape_cost=torch.tensor(landscape_cost, device=dev).T.contiguous(),
+        start_truth=run.start_truth,
+    )
 
 
 def run_adalead_nam(
@@ -311,7 +480,7 @@ def run_adalead_nam(
     signal_strength: float,
     generator: torch.Generator,
 ) -> RunResult:
-    """Run a full Adalead + NoisyAbstractModel experiment.
+    """Run a full Adalead + NoisyAbstractModel experiment: the one-cell case.
 
     Args:
         fitness_fn: Pure `(fitness_params, int64[B, L]) -> f32[B]` oracle.
@@ -324,19 +493,11 @@ def run_adalead_nam(
     Returns:
         A `RunResult` of stacked per-round tensors.
     """
-    run = _Run(fitness_fn, fitness_params, start_tokens, cfg, signal_strength, generator)
-    outs = [run.round() for _ in range(cfg.rounds)]
-    tokens, preds, truth, valid, model_cost, landscape_cost = zip(*outs)
-    dev = run.dev
-    return RunResult(
-        proposal_tokens=torch.stack(tokens),
-        proposal_preds=torch.stack(preds),
-        proposal_truth=torch.stack(truth),
-        proposal_valid=torch.stack(valid),
-        model_cost=torch.tensor(model_cost, device=dev),
-        landscape_cost=torch.tensor(landscape_cost, device=dev),
-        start_truth=run.start_truth,
+    result = run_adalead_nam_cells(
+        cell_axis_oracle(fitness_fn), fitness_params, start_tokens[None], cfg,
+        [signal_strength], [generator],
     )
+    return RunResult(*(x[0] for x in result))
 
 
 class DeviceAdaleadNAM:

@@ -195,3 +195,36 @@ def test_token_outside_the_alphabet_scores_nan(card):
     targets_rev = torch.full((1, 30), 1, dtype=torch.long, device=card)
     got = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop).cpu()
     assert torch.isnan(got[1, 0]) and torch.isfinite(got[[0, 2], 0]).all()
+
+
+def test_tf_binding_oracle_on_card_equals_cpu(card):
+    from flexs_tpu_torch.landscapes import tf_binding
+
+    tokens = np.random.default_rng(8).integers(0, 4, (1024, 8))
+    for name in tf_binding.registry():
+        got = tf_binding.TFBinding(name=name, device=card).fitness_from_tokens(tokens)
+        want = tf_binding.TFBinding(name=name, device="cpu").fitness_from_tokens(tokens)
+        assert got.device == card and torch.equal(got.cpu(), want), name
+
+
+def test_sweep_cells_on_card_equal_standalone_runs(card):
+    """A 4-cell lockstep sweep on the card: each cell equals its standalone run."""
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.landscapes import tf_binding
+    from flexs_tpu_torch.parallel import run_robustness_sweep
+
+    kw = dict(rounds=3, sequences_batch_size=20, model_queries_per_batch=100)
+    df = run_robustness_sweep(
+        ["SIX6_REF_R1", "ARX_L343Q_R1"], tf_binding.STARTS[:1], [0.5, 1.0], seeds=[4],
+        device=card, **kw,
+    )
+    assert len(df) == 4
+    for row in df.itertuples():
+        landscape = tf_binding.TFBinding(name=row.landscape, device=card)
+        single, _ = flexs.runtime.DeviceAdaleadNAM(
+            landscape, flexs.DNAA, starting_sequence=row.start,
+            signal_strength=row.signal_strength, seed=row.seed, device=card, **kw,
+        ).run(verbose=False)
+        assert row.max_fitness == single["true_score"].max()
+        assert row.model_cost == single["model_cost"].iloc[-1]
+        assert row.landscape_cost == landscape.cost

@@ -53,3 +53,32 @@ def test_host_run_reproduces_jax_row_for_row(signal_strength):
     assert (cost_t, mcost_t) == (cost_j, mcost_j)
     meta_t.pop("run_id"), meta_j.pop("run_id")
     assert meta_t == meta_j
+
+
+def _run_tf_binding(pkg, **device):
+    problem = pkg.landscapes.tf_binding.registry()["SIX6_REF_R1"]
+    landscape = pkg.landscapes.TFBinding(**problem["params"], **device)
+    model = pkg.baselines.models.NoisyAbstractModel(landscape, 0.9, seed=0, **device)
+    explorer = pkg.baselines.explorers.Adalead(
+        model, rounds=3, sequences_batch_size=20, model_queries_per_batch=200,
+        starting_sequence=problem["starts"][0], alphabet=pkg.DNAA, seed=0,
+    )
+    df, meta = explorer.run(landscape, verbose=False)
+    return df, meta, landscape.cost, model.cost
+
+
+def test_host_run_reproduces_jax_row_for_row_on_tf_binding():
+    """TF-Bind-8 SIX6_REF_R1, the JAX package's benchmark landscape."""
+    df_t, meta_t, cost_t, mcost_t = _run_tf_binding(flexs_tpu_torch, device="cpu")
+    df_j, meta_j, cost_j, mcost_j = _run_tf_binding(flexs_tpu)
+    assert len(df_t) == len(df_j) == 1 + 3 * 19  # the reference's B-1 proposals
+    assert df_t["sequence"].tolist() == df_j["sequence"].tolist()
+    for col in ("round", "model_cost", "measurement_cost"):
+        np.testing.assert_array_equal(df_t[col].to_numpy(), df_j[col].to_numpy())
+    for col in ("true_score", "model_score"):
+        np.testing.assert_allclose(
+            df_t[col].to_numpy(), df_j[col].to_numpy(), atol=1e-6
+        )
+    assert (cost_t, mcost_t) == (cost_j, mcost_j)
+    meta_t.pop("run_id"), meta_j.pop("run_id")
+    assert meta_t == meta_j

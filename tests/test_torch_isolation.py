@@ -46,7 +46,8 @@ def test_forbidden_match_is_exact():
 
 def test_import_leaves_jax_unloaded():
     code = (
-        "import sys, flexs_tpu_torch, flexs_tpu_torch.runtime; "
+        "import sys, flexs_tpu_torch, flexs_tpu_torch.runtime, flexs_tpu_torch.parallel, "
+        "flexs_tpu_torch.evaluate, flexs_tpu_torch.landscapes.tf_binding; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

@@ -12,7 +12,7 @@ import torch
 
 import flexs_tpu
 import flexs_tpu_torch as flexs
-from flexs_tpu_torch.runtime import DeviceAdaleadNAM
+from flexs_tpu_torch.runtime import DeviceAdaleadNAM, jit_runner
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -193,3 +193,64 @@ def test_profile_spans_wrap_the_run(landscape):
         _run(landscape, rounds=1)
     assert {label: getattr(*where) for label, where in profile_main_path.SPANS.items()} == originals
     assert [label for label, n in calls.items() if n == 0] == ["duplex.launch_plan"]
+
+
+def test_profile_round_hook_sees_every_round(landscape):
+    """The profile script's window opens at a round the run really reaches,
+    and the hook leaves the runner as it found it."""
+    from flexs_tpu_torch import profile_main_path
+
+    original = jit_runner._Run.round
+    seen = []
+    with profile_main_path.before_each_round(seen.append):
+        _run(landscape, rounds=3)
+    assert jit_runner._Run.round is original
+    assert seen == [0, 1, 2]
+    assert 0 <= profile_main_path.ROUNDS - profile_main_path.PROFILED_ROUNDS < profile_main_path.ROUNDS
+
+
+def test_golden_band_six6_ref_r1():
+    """TF-Bind-8 SIX6_REF_R1 at the JAX test's configuration
+    (tests/test_jit_runner.py:96-108: 5 rounds x 50 x 500, top > 0.95)."""
+    from flexs_tpu_torch.landscapes import tf_binding
+
+    landscape = flexs.landscapes.TFBinding(name="SIX6_REF_R1", device="cpu")
+    df, _ = DeviceAdaleadNAM(
+        landscape, flexs.DNAA, rounds=5, sequences_batch_size=50,
+        model_queries_per_batch=500, starting_sequence=tf_binding.STARTS[0],
+        signal_strength=0.9, seed=0, device="cpu",
+    ).run(verbose=False)
+    assert df["true_score"].max() > 0.95
+    assert df["sequence"].is_unique
+    np.testing.assert_array_equal(
+        df["true_score"].to_numpy(), landscape._fitness_function(df["sequence"].tolist())
+    )
+
+
+def test_cells_equal_single_runs(landscape):
+    """Three cells in lockstep equal three single runs, field for field."""
+    from flexs_tpu_torch.runtime.jit_runner import (
+        AdaleadConfig, cell_axis_oracle, run_adalead_nam, run_adalead_nam_cells,
+    )
+
+    cfg = AdaleadConfig(rounds=3, sequences_batch_size=5, model_queries_per_batch=20,
+                        alphabet_size=4)
+    fn, params = landscape.device_fitness()
+    alphabet = flexs.Alphabet(flexs.RNAA)
+    starts = [PROBLEM["starts"][k] for k in (1, 2, 3)]
+    signal_strengths, seeds = [0.9, 0.5, 1.0], [0, 1, 2]
+
+    def gen(seed):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return g
+
+    tokens = torch.as_tensor(alphabet.encode(starts))
+    cells = run_adalead_nam_cells(
+        cell_axis_oracle(fn), params, tokens, cfg, signal_strengths,
+        [gen(s) for s in seeds],
+    )
+    for c in range(3):
+        single = run_adalead_nam(fn, params, tokens[c], cfg, signal_strengths[c], gen(seeds[c]))
+        for name, got, want in zip(single._fields, cells, single):
+            assert torch.equal(got[c], want), (c, name)
