@@ -29,28 +29,50 @@ Phases (any failed check raises, and the script exits nonzero):
         NAM at 0.9, seed 0, STARTS[0]: run invariants, top true_score
         > 0.95; printed twice (cold, warm) with queries/s;
      c. the host run: Adalead + NoisyAbstractModel, 3 rounds;
-     d. the robustness sweep at bench.py's shape: 40 landscapes x 5 signal
-        strengths, 10 x 100 x 2000, chunks of 40 cells: every cell's max
-        >= its start and model cost > 0; the first and last cells equal a
-        standalone DeviceAdaleadNAM exactly; warm wall, sequences scored/s,
-        peak memory, host syncs and draw calls per chunk;
+     d. the robustness sweep at bench.py's chunk shape: 16 of its 40
+        landscapes x 5 signal strengths, 10 x 100 x 2000, two chunks of 40
+        cells: every cell's max >= its start and model cost > 0; the first
+        and last cells equal a standalone DeviceAdaleadNAM exactly; warm
+        wall, sequences scored/s, peak memory, host syncs and draw calls
+        per chunk;
      e. the efficiency and adaptivity sweeps at bench.py's grid on 8
         landscapes: wall, peak memory and chunk size of each;
-  6. row-cost knockouts: the path of `python -m
+  6. the trained-surrogate path and the generic landscape sweep (a-d
+     launch no duplex build; e launches the main path's kernel):
+     a. the Rosetta 3msi oracle on 4,096 seeded tokens and the 6 AAV
+        phenotypes' oracles on the card against the CPU, max |diff| <= 1e-5;
+     b. the fused run: DeviceAdaleadNAM on RosettaFolding 3msi (10 x 100 x
+        2000, start ed_3_wt, seed 0) with model="surrogate" and the default
+        SurrogateSpec (the paper's CNN, retrained every round): cold and
+        warm wall, queries/s, top true_score, the warm wall split between
+        surrogate.train and the rest by CUDA events, and, from a third run
+        under torch.profiler, the kernel launches and device time per run;
+        every run's frame must be identical, the landscape charged exactly
+        the measurements, model cost > 0;
+     c. the host run: Adalead + CNN(66, 32, 100), 3 rounds: wall and top;
+     d. bench.py:98-144's surrogate sweep: 3msi x 5 starts x seeds 0-3,
+        cell_mode "auto" (20 cells): wall, s per cell, mean max_fitness >=
+        0.85 (printed beside the reference's 0.905 and the JAX package's
+        0.9444, quality readings); cells 1 and 20 equal standalone runs;
+     e. a generic NAM sweep, L100_RNA1..4 x starts 1-5 x ss 0.9 x seed 0
+        (20 cells, "vmap"): the duplex kernel must launch, no row-cost
+        build may, and cells 1 and 20 equal standalone runs;
+  7. row-cost knockouts: the path of `python -m
      flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
      measure` runs every build on the profiler's seeded inputs at B=4096
      and B=100, requires baseline and unrolled (and the redesigned kernel,
      timed beside them) to equal the plain version bitwise and const-rec
      and carry-windows (wrong by design) to give finite f32[B], and times
      each;
-  7. print one JSON line describing each kernel, the card's name and power
-     limit, and last the device JSON line.
+  8. print the wall of each phase, one JSON line describing each kernel,
+     the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
 it and reads them just after; a phase in which one of its kernels never
 launched fails, and so does a main-path run that launched a row-cost
 build.  The script needs one CUDA card and imports nothing of JAX.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -69,13 +91,25 @@ FP32_OPS_PER_S = 67e12
 # first kernel gave them; bitwise-equal energies must reproduce them.
 FUSED_LAUNCHES, FUSED_TOP = 439, 0.667402
 HOST_LAUNCHES, HOST_TOP = 112, 0.619458
-# TF-Bind-8 (phase 5): the sweep at bench.py:72-95's shape and the
-# evaluator grids of bench.py:147-182.  Chunks of 40 and of all 8
-# evaluator cells peak under 10 GB of device memory (PERF.md).
-SWEEP_LANDSCAPES, SWEEP_CHUNK = 40, 40
+# TF-Bind-8 (phase 5): the sweep at bench.py:72-95's chunk shape, cut from
+# its 40 landscapes to 16 (two chunks of 40 cells, not five) to keep the
+# script near 600 s, and the evaluator grids of bench.py:147-182.  Chunks
+# of 40 and of all 8 evaluator cells peak under 10 GB of device memory
+# (PERF.md).
+SWEEP_LANDSCAPES, SWEEP_CHUNK = 16, 40
 SWEEP_SIGNAL_STRENGTHS = (0.0, 0.5, 0.75, 0.9, 1.0)
 EVAL_LANDSCAPES, EVAL_CHUNK = 8, 8
 EFFICIENCY_BUDGETS = ((100, 500), (100, 5000), (1000, 5000), (1000, 10000))
+# Phase 6: the card's oracles against the CPU's, and the surrogate sweep's
+# quality floor, beside the reference's mean max fitness over its
+# rosetta_cnn runs (BASELINE.md:27) and the JAX package's over the same
+# sweep (BENCH_r04.json:50).  Quality readings, not times.
+ORACLE_TOLERANCE = 1e-5
+SURROGATE_SWEEP_FLOOR = 0.85
+REFERENCE_MEAN_MAX, JAX_PACKAGE_MEAN_MAX = 0.905, 0.9444
+# Phase 6's per-cell configuration (bench.py:98-144's) and its host run's rounds.
+PHASE6_RUN = dict(rounds=10, sequences_batch_size=100, model_queries_per_batch=2000)
+PHASE6_HOST_ROUNDS = 3
 
 
 def card_line() -> str:
@@ -342,6 +376,179 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
             "host_top": host_top, "robustness_sweep": sweep_reading, **evals}
 
 
+@contextlib.contextmanager
+def train_events(surrogate):
+    """CUDA events around every `surrogate.train` call while inside: [(start, end)]."""
+    events = []
+    original = surrogate.train
+
+    def timed_train(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    surrogate.train = timed_train
+    try:
+        yield events
+    finally:
+        surrogate.train = original
+
+
+def same_as_standalone(flexs, row, land, alphabet, runner_kw):
+    """Hold a sweep summary row to the standalone fused run of its cell, exactly."""
+    cost = land.cost
+    single, _ = flexs.runtime.DeviceAdaleadNAM(
+        land, alphabet, starting_sequence=row["start"], seed=int(row["seed"]), **runner_kw,
+    ).run(verbose=False)
+    assert row["max_fitness"] == single["true_score"].max(), row
+    assert row["model_cost"] == single["model_cost"].iloc[-1], row
+    assert row["landscape_cost"] == land.cost - cost, row
+
+
+def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 6 (a-e): the trained-surrogate path on Rosetta 3msi and the generic sweep."""
+    import pandas as pd
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexs_tpu_torch.landscapes import additive_aav_packaging as aav
+    from flexs_tpu_torch.landscapes import rna, rosetta
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
+    from flexs_tpu_torch.profile_main_path import device_kernels
+    from flexs_tpu_torch.runtime import SurrogateSpec, jit_runner, surrogate
+
+    rng = np.random.default_rng(SEED)
+    problem = rosetta.registry()["3msi"]
+    start = problem["starts"]["ed_3_wt"]
+    cuda_duplex.reset_launch_counts()
+
+    # a. The oracles, card vs CPU.
+    land = rosetta.RosettaFolding(**problem["params"])
+    tokens = rng.integers(0, 20, (4096, 66))
+    oracle_diff = {"rosetta_3msi": float((
+        land.fitness_from_tokens(tokens).cpu()
+        - rosetta.RosettaFolding(**problem["params"], device="cpu").fitness_from_tokens(tokens)
+    ).abs().max())}
+    tokens = rng.integers(0, 20, (4096, 90))
+    for phenotype, p in aav.registry().items():
+        oracle_diff[f"aav_{phenotype}"] = float((
+            aav.AdditiveAAVPackaging(**p["params"]).fitness_from_tokens(tokens).cpu()
+            - aav.AdditiveAAVPackaging(**p["params"], device="cpu").fitness_from_tokens(tokens)
+        ).abs().max())
+    assert max(oracle_diff.values()) <= ORACLE_TOLERANCE, oracle_diff
+    no_duplex_launches(cuda_duplex, "6a")
+    print(f"rosetta/aav oracles: card vs CPU max |diff| {oracle_diff} [{card}]")
+
+    # b. The fused surrogate run: cold, warm (train split by CUDA events),
+    # then profiled for launches and device time.
+    runner_kw = dict(**PHASE6_RUN, model="surrogate", surrogate_spec=SurrogateSpec())
+    rounds, batch, budget = (
+        PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
+
+    def fused():
+        cost = land.cost
+        runner = flexs.runtime.DeviceAdaleadNAM(land, flexs.AAS, starting_sequence=start, seed=0,
+                                                **runner_kw)
+        (df, meta), wall = timed(lambda: runner.run(verbose=False))
+        assert meta["model_name"] == "CNN_hidden_size_100_num_filters_32"
+        return df, wall, land.cost - cost
+
+    df_cold, cold_wall, _ = fused()
+    with train_events(surrogate) as events:
+        df, warm_wall, landscape_cost = fused()
+    train_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        df_profiled, profiled_wall, _ = fused()
+    kernels = device_kernels(prof.key_averages())
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    pd.testing.assert_frame_equal(df_cold, df)
+    pd.testing.assert_frame_equal(df, df_profiled)
+    check_run_frame(df, rounds, batch, budget, start, per_round=batch)
+    assert df["measurement_cost"].max() == len(df) == landscape_cost
+    assert (df[df["round"] > 0]["model_cost"] > 0).all()
+    truth_diff = float(np.abs(df["true_score"].to_numpy()
+                              - land.get_fitness(df["sequence"].tolist())).max())
+    assert truth_diff <= 1e-6, truth_diff
+    no_duplex_launches(cuda_duplex, "6b")
+    queries = int(df["model_cost"].max()) + landscape_cost
+    fused_reading = {
+        "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+        "queries_per_s": queries / warm_wall, "top": float(df["true_score"].max()),
+        "train_s": train_s, "train_calls": len(events), "rest_s": warm_wall - train_s,
+        "profiled_wall_s": profiled_wall, "kernel_launches": sum(e.count for e in kernels),
+        "device_kernel_s": device_s,
+        "device_idle_share_vs_warm_wall": 1 - device_s / warm_wall if device_s else None,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_s": e.self_device_time_total / 1e6} for e in kernels[:8]],
+    }
+    print(f"rosetta surrogate fused run: {json.dumps(fused_reading)}; the three runs' frames "
+          f"are identical [{card}]")
+
+    # c. The host run: Adalead asking a CNN that is retrained every round.
+    host_land = rosetta.RosettaFolding(**problem["params"])
+    explorer = flexs.baselines.explorers.Adalead(
+        flexs.baselines.models.CNN(66, 32, 100, flexs.AAS),
+        rounds=PHASE6_HOST_ROUNDS, sequences_batch_size=batch, model_queries_per_batch=budget,
+        starting_sequence=start, alphabet=flexs.AAS, seed=0,
+    )
+    (df_host, _), host_wall = timed(lambda: explorer.run(host_land, verbose=False))
+    check_run_frame(df_host, PHASE6_HOST_ROUNDS, batch, budget, start, per_round=batch - 1)
+    host_top = float(df_host["true_score"].max())
+    no_duplex_launches(cuda_duplex, "6c")
+    print(f"rosetta host run (Adalead + CNN): wall {host_wall} s, top true_score {host_top}, "
+          f"rows {len(df_host)} [{card}]")
+
+    # d. bench.py's surrogate sweep: 5 starts x 4 seeds, cell_mode "auto".
+    sweep_kw = dict(signal_strengths=[1.0], **runner_kw, cell_mode="auto")
+    starts = list(problem["starts"].values())
+    sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.AAS, starts, seeds=[0, 1, 2, 3], **sweep_kw))
+    assert len(sweep) == 20 and (sweep["model_cost"] > 0).all()
+    mean_max = float(sweep["max_fitness"].mean())
+    assert mean_max >= SURROGATE_SWEEP_FLOOR, mean_max
+    for i in (0, len(sweep) - 1):
+        same_as_standalone(flexs, sweep.iloc[i], land, flexs.AAS, runner_kw)
+    no_duplex_launches(cuda_duplex, "6d")
+    sweep_reading = {"cells": len(sweep), "wall_s": sweep_wall,
+                     "s_per_cell": sweep_wall / len(sweep), "mean_max_fitness": mean_max,
+                     "reference_mean_max_fitness": REFERENCE_MEAN_MAX,
+                     "jax_package_mean_max_fitness": JAX_PACKAGE_MEAN_MAX}
+    print(f"rosetta surrogate sweep: {json.dumps(sweep_reading)}; cells 1 and 20 equal "
+          f"their standalone runs [{card}]")
+
+    # e. A generic NAM sweep over four RNABinding landscapes, in lockstep.
+    reg = rna.registry()
+    lands = [rna.RNABinding(**reg[f"L100_RNA{i}"]["params"]) for i in (1, 2, 3, 4)]
+    rna_starts = [reg["L100_RNA1"]["starts"][k] for k in (1, 2, 3, 4, 5)]
+    cuda_duplex.reset_launch_counts()
+    jit_runner.reset_run_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rna_sweep, rna_wall = timed(lambda: run_landscape_robustness_sweep(
+        lands, flexs.RNAA, rna_starts, [0.9], seeds=[0], **PHASE6_RUN, cell_mode="vmap"))
+    rna_counts = cuda_duplex.launch_counts()
+    syncs = jit_runner.run_counts["syncs"]
+    assert rna_counts[cuda_duplex.MAIN] > 0, "the RNABinding sweep never launched the kernel"
+    stray = {v: n for v, n in rna_counts.items() if v != cuda_duplex.MAIN and n}
+    assert not stray, f"the RNABinding sweep launched row-cost builds: {stray}"
+    assert len(rna_sweep) == 20 and (rna_sweep["max_fitness"] >= rna_sweep["start_fitness"]).all()
+    nam_kw = dict(**PHASE6_RUN, signal_strength=0.9)
+    for i, land_i in ((0, lands[0]), (len(rna_sweep) - 1, lands[-1])):
+        same_as_standalone(flexs, rna_sweep.iloc[i], land_i, flexs.RNAA, nam_kw)
+    rna_reading = {"cells": len(rna_sweep), "wall_s": rna_wall,
+                   "duplex_launches": rna_counts[cuda_duplex.MAIN], "host_syncs": syncs,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "mean_max_fitness": float(rna_sweep["max_fitness"].mean()),
+                   "sequences_scored_per_s": int(rna_sweep["model_cost"].sum()
+                                                 + rna_sweep["landscape_cost"].sum()) / rna_wall}
+    print(f"rna generic sweep (vmap): {json.dumps(rna_reading)}; cells 1 and 20 equal their "
+          f"standalone runs [{card}]")
+    return {"oracle_max_abs_diff": oracle_diff, "fused": fused_reading,
+            "host_wall_s": host_wall, "host_top": host_top, "surrogate_sweep": sweep_reading,
+            "rna_generic_sweep": rna_reading}
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
@@ -370,6 +577,7 @@ def main() -> int:
     problem = reg["L100_RNA1"]
     start = problem["starts"][1]
 
+    stamps = [("1 build", time.perf_counter())]
     # 1. Build every library at once, one nvcc each.
     builds = (cuda_duplex.MAIN,) + cuda_duplex.VARIANTS
     build_pool = ThreadPoolExecutor(max_workers=len(builds))
@@ -379,6 +587,7 @@ def main() -> int:
     build_pool.shutdown()
     print(f"card: {card}")
 
+    stamps.append(("2 kernel vs plain", time.perf_counter()))
     # 2. Kernel vs plain version on the card.
     land = rna.RNABinding(**problem["params"])
     plan = land.device_fitness()[1].plan
@@ -456,6 +665,7 @@ def main() -> int:
               f"({entry['bound_by']}; {entry['n_bytes']} bytes, "
               f"{entry['operations']} operations)")
 
+    stamps.append(("3 fused", time.perf_counter()))
     # 3. Fused main path at full width.
     runner = flexs.runtime.DeviceAdaleadNAM(
         land, flexs.RNAA, rounds=10, sequences_batch_size=100,
@@ -480,6 +690,7 @@ def main() -> int:
           f"(model + landscape), top true_score {fused_top}, "
           f"kernel launches {fused_counts}, rows {len(df)}")
 
+    stamps.append(("4 host", time.perf_counter()))
     # 4. Host path.
     host_land = rna.RNABinding(**problem["params"])
     model = flexs.baselines.models.NoisyAbstractModel(host_land, 0.9, seed=0)
@@ -501,11 +712,18 @@ def main() -> int:
     print(f"host: wall {host_wall} s, top true_score {host_top}, "
           f"kernel launches {host_counts}, rows {len(df_host)}")
 
+    stamps.append(("5 tf-bind", time.perf_counter()))
     # 5. TF-Bind-8: no kernel of this port on its path.
     tf_readings = tf_binding_phases(flexs, cuda_duplex, card)
     print(f"tf-bind readings: {json.dumps(tf_readings)}")
 
-    # 6. Row-cost builds: the profiler's run, check and timing of every
+    stamps.append(("6 surrogate", time.perf_counter()))
+    # 6. The trained-surrogate path and the generic landscape sweep.
+    surrogate_readings = surrogate_phases(flexs, cuda_duplex, card)
+    print(f"surrogate readings: {json.dumps(surrogate_readings)}")
+
+    stamps.append(("7 row-cost", time.perf_counter()))
+    # 7. Row-cost builds: the profiler's run, check and timing of every
     # build on its seeded inputs, with the redesigned kernel beside them.
     cuda_duplex.reset_launch_counts()
     rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
@@ -530,7 +748,12 @@ def main() -> int:
     print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} and duplex_dp == plain (bitwise) at "
           f"B={tuple(rc)}; launches {rc_counts}")
 
-    # 7. Report: the main path's shape (B=100) at the top level, B=512 and
+    # Wall of each phase, so the script's time can be kept near 600 s.
+    stamps.append(("end", time.perf_counter()))
+    phase_walls = {name: b - a for (name, a), (_, b) in zip(stamps, stamps[1:])}
+    print(f"phase walls (s): {json.dumps(phase_walls)}")
+
+    # 8. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -539,6 +762,7 @@ def main() -> int:
         "replaces": "flexs_tpu/ops/pallas_duplex.py:374",
         "launches": fused_counts[cuda_duplex.MAIN],
         "host_launches": host_counts[cuda_duplex.MAIN],
+        "rna_generic_sweep_launches": surrogate_readings["rna_generic_sweep"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

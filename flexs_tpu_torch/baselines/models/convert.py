@@ -1,0 +1,68 @@
+"""Weights carried over from the JAX package's Flax nets and runtime surrogates.
+
+The port's nets keep Flax's layer names and layouts (`Conv_i` kernels
+[k, in, out], `Dense_i` kernels [in, out], biases [out]) in one flat
+f32[nets, P] tensor, each layer's kernel then bias, layers in order.  So a
+Flax parameter tree, given as numpy arrays, maps onto the port's flat
+weights by reshaping and concatenating, with nothing transposed or flipped.
+"""
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from flexs_tpu_torch.baselines.models.torch_model import AdamState
+
+# Layer names of each arch's net, in the port's (and Flax's) order.
+LAYERS = {
+    "cnn": ("Conv_0", "Conv_1", "Conv_2", "Dense_0", "Dense_1", "Dense_2"),
+    "mlp": ("Dense_0", "Dense_1", "Dense_2", "Dense_3"),
+    "gem": ("Dense_0", "Dense_1", "Dense_2", "Dense_3"),
+    "linear": ("Dense_0",),
+}
+
+
+def params_from_flax(arch: str, tree: Mapping) -> torch.Tensor:
+    """The port's flat weights f32[nets, P] (on the CPU) of a Flax parameter tree.
+
+    `tree` is `{"params": {layer: {"kernel", "bias"}}}` (or its inner
+    mapping) of numpy arrays.  A tree whose biases have a leading axis (an
+    ensemble's state from the JAX package's `surrogate.init_state`) gives
+    one net per entry of that axis; otherwise one net.
+    """
+    if arch not in LAYERS:
+        raise ValueError(f"no weight layout for arch {arch!r}")
+    layers = tree["params"] if "params" in tree else tree
+    if sorted(layers) != sorted(LAYERS[arch]):
+        raise ValueError(f"{arch} layers are {LAYERS[arch]}, the tree has {sorted(layers)}")
+    bias = np.asarray(layers[LAYERS[arch][0]]["bias"])
+    nets = bias.shape[0] if bias.ndim == 2 else 1
+    parts = [
+        np.asarray(layers[name][leaf], np.float32).reshape(nets, -1)
+        for name in LAYERS[arch]
+        for leaf in ("kernel", "bias")
+    ]
+    return torch.tensor(np.concatenate(parts, axis=1))
+
+
+def surrogate_state_from_flax(spec, state):
+    """The port's `SurrogateState` (one cell, on the CPU) of a JAX `SurrogateState`.
+
+    Carries the members' weights, Adam's moments and step count
+    (`optax.adam`'s `ScaleByAdamState`) and the combine weights, so that
+    the two packages can take a training step from the same state.
+    """
+    from flexs_tpu_torch.runtime.surrogate import SurrogateState
+
+    adam = state.opt_state[0]
+    count = np.asarray(adam.count, np.int64).reshape(-1)
+    weight = np.asarray(state.weight, np.float32).reshape(1, -1)
+    return SurrogateState(
+        AdamState(
+            params_from_flax(spec.arch, state.params),
+            params_from_flax(spec.arch, adam.mu),
+            params_from_flax(spec.arch, adam.nu),
+            torch.tensor(count),
+        ),
+        torch.tensor(weight),
+    )

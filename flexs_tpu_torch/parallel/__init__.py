@@ -2,6 +2,7 @@
 from flexs_tpu_torch.parallel.sweep import (  # noqa: F401
     run_adaptivity_sweep,
     run_efficiency_sweep,
+    run_landscape_robustness_sweep,
     run_robustness_sweep,
     sweep_adalead_nam,
 )

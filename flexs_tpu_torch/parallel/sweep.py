@@ -1,4 +1,4 @@
-"""Sweep engine: many Adalead + NAM runs as lockstep batches of cells.
+"""Sweep engine: many Adalead runs as lockstep batches of cells.
 
 The reference's evaluators loop serially over sweep cells (reference
 evaluate.py:27-36) and its paper experiments scaled out with independent
@@ -9,14 +9,23 @@ counterpart of the JAX package's vmapped sweep.  A cell's result depends
 only on its own (landscape, start, signal strength, seed), so it equals the
 standalone fused run with that seed, whatever its chunk.
 
-Score tables are not replicated per cell: every cell carries an index into
-one stacked table tensor, so a 200-landscape sweep holds one
-[200, 65536] f32 tensor whatever the grid's size.
+Two engines share the chunking, checkpoints and summary:
+  * `run_robustness_sweep` over TF-binding landscapes: every cell carries
+    an index into one stacked table tensor, so a 200-landscape sweep holds
+    one [200, 65536] f32 tensor whatever the grid's size;
+  * `run_landscape_robustness_sweep` over any family of landscapes that
+    share one device fitness function (RNABinding, AdditiveAAVPackaging,
+    RosettaFolding, TFBinding problems), with any fused model (NAM,
+    perfect, or a trained surrogate).  Landscape params are not stacked
+    (an RNABinding landscape's params hold its kernel plan): a chunk's
+    cells are grouped by landscape, and each landscape's own oracle scores
+    its cells' rows, one call per landscape present.
 """
+import dataclasses
 import hashlib
 import json
 import os
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -25,6 +34,7 @@ import torch
 from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.landscapes import tf_binding
+from flexs_tpu_torch.runtime import surrogate as surrogate_lib
 from flexs_tpu_torch.runtime.jit_runner import (
     AdaleadConfig,
     RunResult,
@@ -44,26 +54,83 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
     return gen
 
 
-def _run_chunk(tables, table_idx, start_tokens, signal_strengths, seeds, cfg, device,
-               cell_mode):
-    """RunResult (tensors, leading cell axis) of one chunk of cells."""
-    idx = torch.as_tensor(table_idx, device=device)
+def _grouped_fitness(params, tokens):
+    """Fitness f32[C, B] of int64[C, B, L]: each landscape's oracle on its own cells.
+
+    params = (fitness fn, the landscapes' params, groups), a group being
+    (landscape index, int64 tensor of the cells on it).
+    """
+    fitness_fn, land_params, groups = params
+    c, b, length = tokens.shape
+    if len(groups) == 1:
+        return fitness_fn(land_params[groups[0][0]], tokens.reshape(c * b, length)).reshape(c, b)
+    out = torch.empty((c, b), device=tokens.device)
+    for li, cells in groups:
+        out[cells] = fitness_fn(land_params[li], tokens[cells].reshape(-1, length)).reshape(-1, b)
+    return out
+
+
+def _run_chunk(fitness_fn, cell_params: Callable, start_tokens, signal_strengths, seeds, cfg,
+               device, cell_mode):
+    """RunResult (tensors, leading cell axis) of one chunk of cells.
+
+    `cell_params(positions)` gives the oracle's params for those cells of
+    the chunk (a list of positions).
+    """
     start = torch.as_tensor(start_tokens, device=device)
     gens = [_generator(s, device) for s in seeds]
-    if cell_mode == "vmap":
+
+    def run(pos):
         return run_adalead_nam_cells(
-            _indexed_table_fitness, (tables, idx), start, cfg, signal_strengths, gens
+            fitness_fn, cell_params(pos), start[pos], cfg, signal_strengths[pos],
+            [gens[i] for i in pos],
         )
+
+    if cell_mode == "vmap":
+        return run(list(range(len(gens))))
     # "map": one cell at a time through the same runner, so each cell's
     # loops run their own trip counts.
-    outs = [
-        run_adalead_nam_cells(
-            _indexed_table_fitness, (tables, idx[c : c + 1]), start[c : c + 1], cfg,
-            signal_strengths[c : c + 1], gens[c : c + 1],
-        )
-        for c in range(len(gens))
-    ]
+    outs = [run([c]) for c in range(len(gens))]
     return RunResult(*(torch.cat(xs) for xs in zip(*outs)))
+
+
+def _run_in_chunks(n: int, chunk_size: Optional[int], checkpoint_dir: Optional[str],
+                   signature: Callable, run_chunk: Callable) -> RunResult:
+    """RunResult (numpy, leading cell axis) of n cells, `run_chunk(cell indices)` per chunk.
+
+    The tail chunk is padded to `chunk_size` by repeating cell 0, and the
+    padding is dropped.  With `checkpoint_dir`, each finished chunk is
+    saved and a rerun of the same sweep (`signature(chunk_size)`) loads it.
+    """
+    if chunk_size is None or chunk_size >= n:
+        chunk_size = None  # one exact-size batch, no padding
+        chunks = [(0, n)]
+    else:
+        chunks = [(i, min(i + chunk_size, n)) for i in range(0, n, chunk_size)]
+    if checkpoint_dir is not None:
+        _init_checkpoint_dir(checkpoint_dir, signature(chunk_size))
+
+    results = []
+    for ci, (lo, hi) in enumerate(chunks):
+        if checkpoint_dir is not None:
+            chunk_path = _checkpoint_chunk_path(checkpoint_dir, ci)
+            if os.path.exists(chunk_path):
+                with np.load(chunk_path) as data:
+                    results.append(RunResult(**{k: data[k] for k in data.files}))
+                continue
+        idx = np.arange(lo, hi)
+        if chunk_size is not None and len(idx) < chunk_size:
+            idx = np.concatenate([idx, np.zeros(chunk_size - len(idx), np.int64)])
+        out = RunResult(*(x[: hi - lo].cpu().numpy() for x in run_chunk(idx)))
+        if checkpoint_dir is not None:
+            # A crash mid-save must not leave a readable partial chunk.
+            tmp = chunk_path + ".tmp.npz"
+            np.savez(tmp, **out._asdict())
+            os.replace(tmp, chunk_path)
+        results.append(out)
+    if len(results) == 1:
+        return results[0]
+    return RunResult(*(np.concatenate(xs, axis=0) for xs in zip(*results)))
 
 
 def sweep_adalead_nam(
@@ -113,45 +180,20 @@ def sweep_adalead_nam(
     signal_strengths = np.asarray(signal_strengths, np.float32)
     seeds = np.asarray(seeds, np.int64)
 
-    n = len(table_idx)
-    if chunk_size is None or chunk_size >= n:
-        chunk_size = None  # one exact-size batch, no padding
-        chunks = [(0, n)]
-    else:
-        chunks = [(i, min(i + chunk_size, n)) for i in range(0, n, chunk_size)]
-    if checkpoint_dir is not None:
-        _init_checkpoint_dir(
-            checkpoint_dir,
-            _sweep_signature(
-                cfg, chunk_size, tables, table_idx, start_tokens, signal_strengths, seeds
-            ),
+    def run_chunk(idx):
+        chunk_tables = torch.as_tensor(table_idx[idx], device=device)
+        return _run_chunk(
+            _indexed_table_fitness, lambda pos: (tables, chunk_tables[pos]), start_tokens[idx],
+            signal_strengths[idx], seeds[idx], cfg, device, cell_mode,
         )
 
-    results = []
-    for ci, (lo, hi) in enumerate(chunks):
-        if checkpoint_dir is not None:
-            chunk_path = _checkpoint_chunk_path(checkpoint_dir, ci)
-            if os.path.exists(chunk_path):
-                with np.load(chunk_path) as data:
-                    results.append(RunResult(**{k: data[k] for k in data.files}))
-                continue
-        idx = np.arange(lo, hi)
-        if chunk_size is not None and len(idx) < chunk_size:
-            idx = np.concatenate([idx, np.zeros(chunk_size - len(idx), np.int64)])
-        out = _run_chunk(
-            tables, table_idx[idx], start_tokens[idx], signal_strengths[idx], seeds[idx],
-            cfg, device, cell_mode,
-        )
-        out = RunResult(*(x[: hi - lo].cpu().numpy() for x in out))
-        if checkpoint_dir is not None:
-            # A crash mid-save must not leave a readable partial chunk.
-            tmp = chunk_path + ".tmp.npz"
-            np.savez(tmp, **out._asdict())
-            os.replace(tmp, chunk_path)
-        results.append(out)
-    if len(results) == 1:
-        return results[0]
-    return RunResult(*(np.concatenate(xs, axis=0) for xs in zip(*results)))
+    return _run_in_chunks(
+        len(table_idx), chunk_size, checkpoint_dir,
+        lambda cs: _sweep_signature(
+            cfg, cs, tables, table_idx, start_tokens, signal_strengths, seeds
+        ),
+        run_chunk,
+    )
 
 
 def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, seed_arr) -> str:
@@ -185,6 +227,68 @@ def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, s
         ).encode()
     )
     for arr in (table_idx, start_tokens, ss_arr, seed_arr):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def _tensor_leaves(obj):
+    """The tensors in a landscape's params (tuples, dicts, dataclasses), in order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for key in sorted(obj):
+            yield from _tensor_leaves(obj[key])
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensor_leaves(x)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensor_leaves(getattr(obj, f.name))
+
+
+def _landscape_sweep_signature(model, surrogate_spec, cfg, chunk_size, landscapes, fitness_fn,
+                               land_idx, start_tokens, ss_arr, seed_arr, device) -> str:
+    """Stable signature of everything that determines a landscape sweep's results.
+
+    Each landscape enters by name, by the shapes and dtypes of its params'
+    tensors and by a content fingerprint of them (sum, sum of squares and
+    first element in f32, reduced on the device and fetched once per
+    landscape), so two problems that share a name, a fitness function and
+    shapes still differ.  Only the surrogate spec's non-default fields
+    enter, so a new field at its default keeps old checkpoints valid.
+    """
+    params_spec = []
+    for land in landscapes:
+        leaves = [x for x in _tensor_leaves(land.device_fitness()[1]) if x.numel()]
+        stats = [
+            torch.stack([x.float().sum(), x.float().square().sum(), x.reshape(-1)[0].float()])
+            for x in leaves
+        ]
+        fingerprint = torch.cat(stats).cpu().numpy().tobytes().hex() if stats else ""
+        params_spec.append([[list(x.shape), str(x.dtype)] for x in leaves] + [fingerprint])
+    default_spec = surrogate_lib.SurrogateSpec()._asdict()
+    h = hashlib.sha256()
+    h.update(
+        json.dumps(
+            {
+                "algorithm": "adalead",
+                "model": model,
+                "surrogate_spec": (
+                    sorted((k, v) for k, v in surrogate_spec._asdict().items()
+                           if v != default_spec[k])
+                    if surrogate_spec else None
+                ),
+                "cfg": {k: v for k, v in cfg._asdict().items() if k != "surrogate"},
+                "chunk_size": chunk_size,
+                "landscapes": [land.name for land in landscapes],
+                "fitness_fn": f"{fitness_fn.__module__}.{fitness_fn.__qualname__}",
+                "params_spec": params_spec,
+                "device": device.type,
+            },
+            sort_keys=True,
+        ).encode()
+    )
+    for arr in (land_idx, start_tokens, ss_arr, seed_arr):
         h.update(np.ascontiguousarray(arr).tobytes())
     return h.hexdigest()
 
@@ -247,8 +351,13 @@ def _summary_df(result, cells) -> pd.DataFrame:
     )
 
 
-def _check_ported(mesh, algorithm, algorithm_kwargs, model) -> None:
-    """Raise for the sweep options that are not ported yet."""
+def _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec, cell_mode) -> str:
+    """The cell mode "auto" resolves to; raises for options that are not ported or wrong.
+
+    "auto" is "map" for a trained surrogate (a chunk's cells would run
+    their data-dependent loops in lockstep while each cell's training is
+    a fixed cost) and "vmap" otherwise, as in the JAX package.
+    """
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sweeps over several devices) is not ported yet (ROADMAP.md, item 17)"
@@ -258,12 +367,115 @@ def _check_ported(mesh, algorithm, algorithm_kwargs, model) -> None:
             "sweeps of other fused algorithms (algorithm=, algorithm_kwargs=) are "
             "not ported yet (ROADMAP.md, item 16)"
         )
-    if model == "surrogate":
-        raise NotImplementedError(
-            "model='surrogate' is not ported yet (ROADMAP.md, item 15)"
-        )
-    if model not in ("nam", "perfect"):
+    if model not in ("nam", "perfect", "surrogate"):
         raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
+    if model == "surrogate":
+        surrogate_lib.check_spec(surrogate_spec or surrogate_lib.SurrogateSpec())
+    if cell_mode == "auto":
+        return "map" if model == "surrogate" else "vmap"
+    if cell_mode not in ("vmap", "map"):
+        raise ValueError("cell_mode must be 'auto', 'vmap' or 'map'")
+    return cell_mode
+
+
+def run_landscape_robustness_sweep(
+    landscapes: Sequence,
+    alphabet,
+    starts: Sequence[str],
+    signal_strengths: Sequence[float] = (0.0, 0.5, 0.75, 0.9, 1.0),
+    seeds: Sequence[int] = (0,),
+    rounds: int = 10,
+    sequences_batch_size: int = 100,
+    model_queries_per_batch: int = 2000,
+    mesh=None,
+    chunk_size: Optional[int] = None,
+    algorithm: str = "adalead",
+    algorithm_kwargs: Optional[dict] = None,
+    model: str = "nam",
+    surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
+    checkpoint_dir: Optional[str] = None,
+    cell_mode: str = "auto",
+    device=None,
+) -> pd.DataFrame:
+    """Robustness sweep over any family of device-fitness landscapes.
+
+    All `landscapes` must share one `device_fitness()` function (e.g.
+    several RNABinding problems, or several AdditiveAAVPackaging
+    phenotypes) and live on `device` (default "cuda").  Returns the summary
+    frame of `run_robustness_sweep`, one row per (landscape, start, signal
+    strength, seed) cell, in that order.
+
+    `model` is "nam" (sweeps `signal_strengths`), "perfect", or
+    "surrogate": a net trained in the run every round per cell
+    (`runtime.surrogate.SurrogateSpec`, default the paper's CNN); then
+    `signal_strengths` is ignored and should be `[1.0]`.  `cell_mode`
+    "vmap" runs each chunk's cells in lockstep, "map" one by one (each a
+    standalone run), "auto" picks "map" for a surrogate and "vmap"
+    otherwise; a cell's result is the same in every mode.  `chunk_size`
+    and `checkpoint_dir` are those of `sweep_adalead_nam`.  Not ported
+    yet, and raising NotImplementedError: `mesh` (ROADMAP item 17) and
+    other `algorithm`s or `algorithm_kwargs` (item 16).
+    """
+    cell_mode = _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec,
+                               cell_mode)
+    if model == "surrogate":
+        surrogate_spec = surrogate_spec or surrogate_lib.SurrogateSpec()
+    device = resolve_device(device)
+    alpha: Alphabet = as_alphabet(alphabet)
+    fns_params = [land.device_fitness() for land in landscapes]
+    fitness_fn = fns_params[0][0]
+    if any(fn is not fitness_fn for fn, _ in fns_params):
+        raise ValueError("all landscapes must share one device fitness fn")
+    for land in landscapes:
+        if getattr(land, "device", device) != device:
+            raise ValueError(f"landscape {land.name} lives on {land.device}, the sweep on {device}")
+    land_params = [p for _, p in fns_params]
+
+    cells = [
+        (li, st, ss, sd)
+        for li in range(len(landscapes))
+        for st in starts
+        for ss in signal_strengths
+        for sd in seeds
+    ]
+    land_idx = np.array([c[0] for c in cells], np.int64)
+    start_tokens = alpha.encode([c[1] for c in cells]).astype(np.int64)
+    ss_arr = np.array([c[2] for c in cells], np.float32)
+    seed_arr = np.array([c[3] for c in cells], np.int64)
+    cfg = AdaleadConfig(
+        rounds=rounds,
+        sequences_batch_size=sequences_batch_size,
+        model_queries_per_batch=model_queries_per_batch,
+        alphabet_size=len(alpha),
+        perfect_model=(model == "perfect"),
+        surrogate=surrogate_spec if model == "surrogate" else None,
+    )
+
+    def run_chunk(idx):
+        chunk_land = land_idx[idx]
+
+        def cell_params(pos):
+            lands = chunk_land[pos]
+            groups = [
+                (li, torch.as_tensor(np.flatnonzero(lands == li), device=device))
+                for li in dict.fromkeys(lands.tolist())
+            ]
+            return fitness_fn, land_params, groups
+
+        return _run_chunk(
+            _grouped_fitness, cell_params, start_tokens[idx], ss_arr[idx], seed_arr[idx], cfg,
+            device, cell_mode,
+        )
+
+    result = _run_in_chunks(
+        len(cells), chunk_size, checkpoint_dir,
+        lambda cs: _landscape_sweep_signature(
+            model, surrogate_spec, cfg, cs, landscapes, fitness_fn, land_idx, start_tokens,
+            ss_arr, seed_arr, device,
+        ),
+        run_chunk,
+    )
+    return _summary_df(result, [(landscapes[li].name, st, ss, sd) for li, st, ss, sd in cells])
 
 
 class SweepCell(NamedTuple):
@@ -289,8 +501,9 @@ def run_robustness_sweep(
     algorithm: str = "adalead",
     algorithm_kwargs: Optional[dict] = None,
     model: str = "nam",
+    surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
     checkpoint_dir: Optional[str] = None,
-    cell_mode: str = "vmap",
+    cell_mode: str = "auto",
     device=None,
 ) -> pd.DataFrame:
     """Robustness evaluator over TF-binding landscapes as one sweep.
@@ -301,16 +514,32 @@ def run_robustness_sweep(
     costs), in the JAX package's columns and cell order (landscape, then
     start, signal strength, seed).
 
-    `model` is "nam" (sweeps `signal_strengths`) or "perfect".  `cell_mode`
-    "vmap" runs each chunk in lockstep, "map" runs its cells one by one;
-    scores are identical.  `chunk_size`, `device` and `checkpoint_dir` are
-    those of `sweep_adalead_nam`.  Not ported yet, and raising
-    NotImplementedError: `mesh` (ROADMAP item 17), other `algorithm`s or
-    `algorithm_kwargs` (item 16) and model="surrogate" (item 15, which
-    brings the JAX signature's `surrogate_spec` and `cell_mode="auto"`).
+    `model` is "nam" (sweeps `signal_strengths`), "perfect" or "surrogate"
+    (`surrogate_spec`, default the paper's CNN).  `cell_mode` "vmap" runs
+    each chunk in lockstep, "map" runs its cells one by one, "auto" picks
+    "map" for a surrogate and "vmap" otherwise; scores are identical.  A
+    surrogate or "map" sweep goes through `run_landscape_robustness_sweep`;
+    the others gather from the stacked score tables.  `chunk_size`,
+    `device` and `checkpoint_dir` are those of `sweep_adalead_nam`.  Not
+    ported yet, and raising NotImplementedError: `mesh` (ROADMAP item 17)
+    and other `algorithm`s or `algorithm_kwargs` (item 16).
     """
-    _check_ported(mesh, algorithm, algorithm_kwargs, model)
+    cell_mode = _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec,
+                               cell_mode)
     device = resolve_device(device)
+    if model == "surrogate" or cell_mode == "map":
+        landscapes = []
+        for name in landscape_names:
+            land = tf_binding.TFBinding(name=name, device=device)
+            land.name = name  # summary rows name the problem, not the family
+            landscapes.append(land)
+        return run_landscape_robustness_sweep(
+            landscapes, alphabet, starts=starts, signal_strengths=list(signal_strengths),
+            seeds=list(seeds), rounds=rounds, sequences_batch_size=sequences_batch_size,
+            model_queries_per_batch=model_queries_per_batch, chunk_size=chunk_size,
+            model=model, surrogate_spec=surrogate_spec, checkpoint_dir=checkpoint_dir,
+            cell_mode=cell_mode, device=device,
+        )
     alpha: Alphabet = as_alphabet(alphabet)
     names, tables = tf_binding._device_tables(device)
     name_to_idx = {n: i for i, n in enumerate(names)}
@@ -336,8 +565,7 @@ def run_robustness_sweep(
     )
     result = sweep_adalead_nam(
         tables, table_idx, start_tokens, ss_arr, seed_arr, cfg,
-        chunk_size=chunk_size, device=device, cell_mode=cell_mode,
-        checkpoint_dir=checkpoint_dir,
+        chunk_size=chunk_size, device=device, checkpoint_dir=checkpoint_dir,
     )
     return _summary_df(result, cells)
 
@@ -359,6 +587,7 @@ def run_efficiency_sweep(
     algorithm: str = "adalead",
     algorithm_kwargs: Optional[dict] = None,
     model: str = "nam",
+    surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
     device=None,
 ) -> pd.DataFrame:
     """Efficiency evaluator as sweeps (reference evaluate.py:40-74).
@@ -381,6 +610,7 @@ def run_efficiency_sweep(
             algorithm=algorithm,
             algorithm_kwargs=algorithm_kwargs,
             model=model,
+            surrogate_spec=surrogate_spec,
             device=device,
         )
         df["sequences_batch_size"] = sequences_batch_size
@@ -402,6 +632,7 @@ def run_adaptivity_sweep(
     algorithm: str = "adalead",
     algorithm_kwargs: Optional[dict] = None,
     model: str = "nam",
+    surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
     device=None,
 ) -> pd.DataFrame:
     """Adaptivity evaluator as sweeps (reference evaluate.py:77-112).
@@ -424,6 +655,7 @@ def run_adaptivity_sweep(
             algorithm=algorithm,
             algorithm_kwargs=algorithm_kwargs,
             model=model,
+            surrogate_spec=surrogate_spec,
             device=device,
         )
         df["rounds"] = rounds

@@ -13,6 +13,13 @@ Semantics mirror the host classes they fuse (cited against the reference):
     queries (signal + nearest neighbour), pred = a^d * f + (1 - a^d) * eps,
     eps ~ Exp(mean = neighbour's true fitness), and the prediction is
     cached.
+  * Trained surrogate (`cfg.surrogate`, the JAX runner's surrogate mode;
+    reference explorer.py:157-160 -> keras_model.py:49-79): a net (or
+    ensemble, `runtime.surrogate`) retrained on the measured set at the
+    start of every round; every model query is a fresh forward pass, never
+    served from the cache (the net changes between rounds), and never
+    charges the landscape.  The cache still drives novelty rejection and
+    holds the prediction as its row's truth.
   * Runner contract (reference explorer.py:115-184): round 0 measures the
     start; each round proposes the top-B generated by model score,
     measures truth and appends to the measured set.
@@ -56,6 +63,7 @@ from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.explorer import write_run_log
 from flexs_tpu_torch.ops import packed_hamming
+from flexs_tpu_torch.runtime import surrogate as surrogate_lib
 from flexs_tpu_torch.utils import sequence_utils
 
 
@@ -76,6 +84,10 @@ class AdaleadConfig(NamedTuple):
     # charge the landscape cost counter.  False = NoisyAbstractModel
     # semantics (2 landscape queries per new model query).
     perfect_model: bool = False
+    # Non-None = carry this trained surrogate in the run: retrained on the
+    # measured buffer every round, queried for every model score, the
+    # landscape charged only at measurement.  Overrides perfect_model/NAM.
+    surrogate: Optional[surrogate_lib.SurrogateSpec] = None
 
 
 class RunResult(NamedTuple):
@@ -195,6 +207,10 @@ class _Run:
         # Device copies, one tensor so that a query updates both in one op.
         self.counts_t = torch.tensor([[0] * C, [1] * C], dtype=torch.long, device=dev)
         self.model_cost_t, self.n_cache_t = self.counts_t
+        if cfg.surrogate is not None:
+            self.surr = surrogate_lib.init_state(
+                cfg.surrogate, cfg.alphabet_size, L, gens, capacity=measured_cap
+            )
 
     def fetch(self, values):
         """The step's one device->host sync: `values` as nested lists."""
@@ -237,20 +253,25 @@ class _Run:
         that is not `live`.  Cached rows return their cached value (1 model
         cost); uncached rows run the NAM corruption (1 model + 2 landscape
         costs, or 1 model cost for a perfect model) and are inserted into
-        the cache.
+        the cache.  With a surrogate every row is a fresh prediction (1
+        model cost), and uncached rows are inserted with it.
         """
         C, m = mask.shape
+        spec = self.cfg.surrogate
         pk = self.pack(tokens)
         dists = self.dists_to_cache(pk)
         min_dist = dists.amin(dim=2)
         nearest = dists.argmin(dim=2)
         cached = min_dist == 0
         cached_vals = self.cache_vals.gather(1, nearest)
-        signal = self.fitness_fn(self.fitness_params, tokens)
 
-        if self.cfg.perfect_model:
+        if spec is not None:
+            values = signal = surrogate_lib.predict(spec, self.cfg.alphabet_size, self.surr, tokens)
+        elif self.cfg.perfect_model:
+            signal = self.fitness_fn(self.fitness_params, tokens)
             values = torch.where(cached, cached_vals, signal)
         else:
+            signal = self.fitness_fn(self.fitness_params, tokens)
             neighbor_truth = self.cache_truth.gather(1, nearest)
             gens = self.live_gens(live, draws=2)
             expo, rand_idx = self.draw_buffers(gens, (C, m), torch.float32, torch.long)
@@ -278,7 +299,7 @@ class _Run:
         for c in range(C):
             self.model_cost[c] += n_mask[c]
             self.n_cache[c] += n_insert[c]
-            if not self.cfg.perfect_model:
+            if not self.cfg.perfect_model and spec is None:
                 self.landscape_cost[c] += 2 * n_insert[c]
         return values, pos
 
@@ -343,6 +364,11 @@ class _Run:
         C, B, budget = self.C, cfg.sequences_batch_size, cfg.model_queries_per_batch
         round_start = list(self.model_cost)
         round_start_t = self.model_cost_t.clone()
+        if cfg.surrogate is not None:
+            self.surr = surrogate_lib.train(
+                cfg.surrogate, cfg.alphabet_size, self.surr, self.measured_tokens,
+                self.measured_truth, self.n_measured, self.gens,
+            )
 
         # Parent selection (sign-aware threshold + np.resize tiling): row
         # b of a cell's parents is its (b mod n_selected)-th selected row.
@@ -450,7 +476,7 @@ def run_adalead_nam_cells(
         cfg: Adalead configuration, shared by every cell.
         signal_strengths: NAM alpha in [0, 1] per cell (C floats).
         generators: One `torch.Generator` per cell, on the run's device:
-            each cell's only source of randomness.
+            each cell's only source of randomness (the surrogate's too).
 
     Returns:
         A `RunResult` with a leading cell axis on every field.
@@ -522,6 +548,7 @@ class DeviceAdaleadNAM:
         rho: int = 0,
         seed: int = 0,
         model: str = "nam",
+        surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
         log_file: Optional[str] = None,
         device=None,
     ):
@@ -529,16 +556,17 @@ class DeviceAdaleadNAM:
 
         `landscape` must expose `device_fitness()` and live on the same
         device.  `model` selects the fused surrogate: "nam"
-        (NoisyAbstractModel at `signal_strength`) or "perfect"
+        (NoisyAbstractModel at `signal_strength`), "perfect"
         (LandscapeAsModel semantics: predictions equal truth, model queries
-        don't charge the landscape).
+        don't charge the landscape) or "surrogate" (a net retrained on the
+        measured set every round, configured by `surrogate_spec`; default
+        the paper's CNN_hidden_size_100_num_filters_32).
         """
         if model not in ("nam", "perfect", "surrogate"):
             raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
         if model == "surrogate":
-            raise NotImplementedError(
-                "model='surrogate' is not ported yet (ROADMAP.md, item 15)"
-            )
+            surrogate_spec = surrogate_spec or surrogate_lib.SurrogateSpec()
+            surrogate_lib.check_spec(surrogate_spec)
         if rounds < 1:
             raise ValueError("rounds must be >= 1 for the fused runner")
         if model_queries_per_batch < sequences_batch_size:
@@ -560,6 +588,8 @@ class DeviceAdaleadNAM:
         self.name = f"DeviceAdalead_mu={mu}_threshold={threshold}"
         if model == "perfect":
             self.model_name = f"LandscapeAsModel={landscape.name}"
+        elif model == "surrogate":
+            self.model_name = surrogate_spec.model_name
         else:
             self.model_name = f"NAMb_ss{signal_strength}"
 
@@ -573,6 +603,7 @@ class DeviceAdaleadNAM:
             recomb_rate=recomb_rate,
             rho=rho,
             perfect_model=(model == "perfect"),
+            surrogate=surrogate_spec if model == "surrogate" else None,
         )
         self._fitness_fn, self._fitness_params = landscape.device_fitness()
 

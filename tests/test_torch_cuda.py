@@ -228,3 +228,66 @@ def test_sweep_cells_on_card_equal_standalone_runs(card):
         assert row.max_fitness == single["true_score"].max()
         assert row.model_cost == single["model_cost"].iloc[-1]
         assert row.landscape_cost == landscape.cost
+
+
+def test_rosetta_and_aav_oracles_on_card_within_1e5_of_cpu(card):
+    from flexs_tpu_torch.landscapes import additive_aav_packaging as aav
+    from flexs_tpu_torch.landscapes import rosetta
+
+    params = rosetta.registry()["3msi"]["params"]
+    tokens = np.random.default_rng(9).integers(0, 20, (4096, 66))
+    got = rosetta.RosettaFolding(**params, device=card).fitness_from_tokens(tokens)
+    want = rosetta.RosettaFolding(**params, device="cpu").fitness_from_tokens(tokens)
+    assert got.device == card and float((got.cpu() - want).abs().max()) <= 1e-5
+    tokens = np.random.default_rng(10).integers(0, 20, (1024, 90))
+    for phenotype, problem in aav.registry().items():
+        got = aav.AdditiveAAVPackaging(**problem["params"], device=card).fitness_from_tokens(tokens)
+        want = aav.AdditiveAAVPackaging(**problem["params"], device="cpu").fitness_from_tokens(tokens)
+        assert float((got.cpu() - want).abs().max()) <= 1e-5, phenotype
+
+
+def test_surrogate_run_is_deterministic_on_the_card(card):
+    import pandas as pd
+
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.landscapes import rosetta
+    from flexs_tpu_torch.runtime import SurrogateSpec
+
+    problem = rosetta.registry()["3msi"]
+    land = rosetta.RosettaFolding(**problem["params"], device=card)
+    spec = SurrogateSpec(num_filters=8, hidden_size=16, epochs=3, batch_size=64)
+
+    def run():
+        cost = land.cost
+        df, _ = flexs.runtime.DeviceAdaleadNAM(
+            land, flexs.AAS, rounds=3, sequences_batch_size=20, model_queries_per_batch=100,
+            starting_sequence=problem["starts"]["ed_3_wt"], model="surrogate",
+            surrogate_spec=spec, seed=1, device=card,
+        ).run(verbose=False)
+        assert df["measurement_cost"].max() == len(df) == land.cost - cost
+        return df
+
+    first = run()
+    pd.testing.assert_frame_equal(first, run())
+    assert (first[first["round"] > 0]["model_cost"] > 0).all()
+
+
+def test_rna_generic_sweep_launches_the_kernel_and_equals_standalone(card):
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
+
+    reg = rna.registry()
+    lands = [rna.RNABinding(**reg[f"L14_RNA{i}"]["params"], device=card) for i in (1, 2)]
+    kw = dict(rounds=2, sequences_batch_size=5, model_queries_per_batch=20, device=card)
+    before = cuda_duplex.launches
+    df = run_landscape_robustness_sweep(lands, flexs.RNAA, [reg["L14_RNA1"]["starts"][1]], [0.9],
+                                        seeds=[3], cell_mode="vmap", **kw)
+    assert cuda_duplex.launches > before
+    for i, row in enumerate(df.itertuples()):
+        land = rna.RNABinding(**reg[f"L14_RNA{i + 1}"]["params"], device=card)
+        single, _ = flexs.runtime.DeviceAdaleadNAM(
+            land, flexs.RNAA, starting_sequence=row.start, signal_strength=0.9, seed=3, **kw,
+        ).run(verbose=False)
+        assert row.max_fitness == single["true_score"].max()
+        assert row.model_cost == single["model_cost"].iloc[-1]
+        assert row.landscape_cost == land.cost

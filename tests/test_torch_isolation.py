@@ -31,6 +31,12 @@ def test_port_sources_are_found():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
     assert os.path.join("flexs_tpu_torch", "ops", "cuda_duplex.py") in names
+    for module in ("runtime/surrogate.py", "landscapes/rosetta.py",
+                   "landscapes/additive_aav_packaging.py", "ops/pdb.py",
+                   "baselines/models/torch_model.py", "baselines/models/cnn.py",
+                   "baselines/models/mlp.py", "baselines/models/global_epistasis_model.py",
+                   "baselines/models/convert.py"):
+        assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -47,7 +53,10 @@ def test_forbidden_match_is_exact():
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, flexs_tpu_torch, flexs_tpu_torch.runtime, flexs_tpu_torch.parallel, "
-        "flexs_tpu_torch.evaluate, flexs_tpu_torch.landscapes.tf_binding; "
+        "flexs_tpu_torch.evaluate, flexs_tpu_torch.landscapes.tf_binding, "
+        "flexs_tpu_torch.landscapes.rosetta, flexs_tpu_torch.landscapes.additive_aav_packaging, "
+        "flexs_tpu_torch.ops.pdb, flexs_tpu_torch.runtime.surrogate, "
+        "flexs_tpu_torch.baselines.models.torch_model, flexs_tpu_torch.baselines.models.convert; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

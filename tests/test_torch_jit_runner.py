@@ -149,8 +149,9 @@ def test_invalid_and_unported_modes_raise(landscape):
               starting_sequence=START, device="cpu")
     with pytest.raises(ValueError):
         DeviceAdaleadNAM(landscape, flexs.RNAA, model="bogus", **kw)
+    gp = flexs.runtime.surrogate.SurrogateSpec(arch="gp")  # needs jax_gp.py, not ported
     with pytest.raises(NotImplementedError, match="item 15"):
-        DeviceAdaleadNAM(landscape, flexs.RNAA, model="surrogate", **kw)
+        DeviceAdaleadNAM(landscape, flexs.RNAA, model="surrogate", surrogate_spec=gp, **kw)
 
 
 def test_default_device_without_card_raises(landscape):

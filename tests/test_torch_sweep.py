@@ -18,6 +18,7 @@ from flexs_tpu_torch.landscapes import tf_binding
 from flexs_tpu_torch.parallel import sweep
 from flexs_tpu_torch.runtime import DeviceAdaleadNAM
 from flexs_tpu_torch.runtime.jit_runner import AdaleadConfig
+from flexs_tpu_torch.runtime.surrogate import SurrogateSpec
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -220,7 +221,7 @@ def test_checkpoint_resume(tmp_path):
         ({"mesh": object()}, "item 17"),
         ({"algorithm": "ga"}, "item 16"),
         ({"algorithm_kwargs": {"mu": 2}}, "item 16"),
-        ({"model": "surrogate"}, "item 15"),
+        ({"model": "surrogate", "surrogate_spec": SurrogateSpec(arch="gp")}, "item 15"),
     ],
 )
 def test_unported_options_raise(kw, item):
