@@ -35,7 +35,7 @@ Phases (any failed check raises, and the script exits nonzero):
         and last cells equal a standalone DeviceAdaleadNAM exactly; warm
         wall, sequences scored/s, peak memory, host syncs and draw calls
         per chunk;
-     e. the efficiency and adaptivity sweeps at bench.py's grid on 8
+     e. the efficiency and adaptivity sweeps at bench.py's grid on 4
         landscapes: wall, peak memory and chunk size of each;
   6. the trained-surrogate path and the generic landscape sweep (a-d
      launch no duplex build; e launches the main path's kernel):
@@ -50,13 +50,14 @@ Phases (any failed check raises, and the script exits nonzero):
         every run's frame must be identical, the landscape charged exactly
         the measurements, model cost > 0;
      c. the host run: Adalead + CNN(66, 32, 100), 3 rounds: wall and top;
-     d. bench.py:98-144's surrogate sweep: 3msi x 5 starts x seeds 0-3,
-        cell_mode "auto" (20 cells): wall, s per cell, mean max_fitness >=
-        0.85 (printed beside the reference's 0.905 and the JAX package's
-        0.9444, quality readings); cells 1 and 20 equal standalone runs;
-     e. a generic NAM sweep, L100_RNA1..4 x starts 1-5 x ss 0.9 x seed 0
-        (20 cells, "vmap"): the duplex kernel must launch, no row-cost
-        build may, and cells 1 and 20 equal standalone runs;
+     d. bench.py:98-144's surrogate sweep, cut to 3msi x 5 starts x seed
+        0, cell_mode "auto" (5 cells): wall, s per cell, mean
+        max_fitness >= 0.85 (printed beside the reference's 0.905 and the
+        JAX package's 0.9444, quality readings); the first and last cells
+        equal standalone runs;
+     e. a generic NAM sweep, L100_RNA1..2 x starts 1-5 x ss 0.9 x seed 0
+        (10 cells, "vmap"): the duplex kernel must launch, no row-cost
+        build may, and the first and last cells equal standalone runs;
   7. row-cost knockouts: the path of `python -m
      flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
      measure` runs every build on the profiler's seeded inputs at B=4096
@@ -64,7 +65,34 @@ Phases (any failed check raises, and the script exits nonzero):
      timed beside them) to equal the plain version bitwise and const-rec
      and carry-windows (wrong by design) to give finite f32[B], and times
      each;
-  8. print the wall of each phase, one JSON line describing each kernel,
+  8. the fold (RNAFolding; no kernel of this port, no duplex build may
+     launch):
+     a. `zuker_mfe_batch` on the card against the CPU on seeded rows (B=64
+        at L = 14, 50, 100) and the structured rows of
+        tests/test_rna_fold.py: bitwise expected, max |diff| <= 1e-5
+        required;
+     b. the readings of `python -m flexs_tpu_torch.profile_fold`;
+     c. the fused run: DeviceAdaleadNAM on RNAFolding from L100_RNA1's start
+        1 (L=100), NAM 0.9, seed 0, 10 x 100 x 2000, then again under
+        torch.profiler (CUDA activity only): identical frames, run
+        invariants, true_score == get_fitness exactly; wall, queries/s,
+        launches, device time, top true_score;
+     d. the host run: Adalead + NoisyAbstractModel, 3 rounds;
+     e. a generic sweep over starts 1-5 at ss 0.9 in lockstep, cut to 2
+        rounds: cells 1 and 5 equal standalone runs;
+  9. GFP at full width (12 layers, hidden 768, 12 heads, 256 tokens; the
+     seeded-init oracle, as no checkpoint is in the checkout; 100 rows a
+     forward pass), TF32 off for the whole phase, no duplex build may
+     launch:
+     a. the oracle on the card against the CPU on the wild type and the
+        three starts, rtol and atol 1e-4;
+     b. the fused run from ed_10_wt, NAM 0.9, 10 x 100 x 2000, under
+        torch.profiler (CUDA activity only): wall, queries/s, peak memory,
+        device idle share and the oracle's share of the wall (CUDA events);
+     c. the host run, 3 rounds, on a landscape scoring 32 rows a pass;
+     d. a generic sweep over the 3 starts, cut to 1 round, one cell after
+        another ("map");
+  10. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -92,13 +120,13 @@ FP32_OPS_PER_S = 67e12
 FUSED_LAUNCHES, FUSED_TOP = 439, 0.667402
 HOST_LAUNCHES, HOST_TOP = 112, 0.619458
 # TF-Bind-8 (phase 5): the sweep at bench.py:72-95's chunk shape, cut from
-# its 40 landscapes to 16 (two chunks of 40 cells, not five) to keep the
-# script near 600 s, and the evaluator grids of bench.py:147-182.  Chunks
-# of 40 and of all 8 evaluator cells peak under 10 GB of device memory
-# (PERF.md).
+# its 40 landscapes to 16 (two chunks of 40 cells, not five), and the
+# evaluator grids of bench.py:147-182 on 4 of their landscapes, to keep the
+# script near 700 s (PERF.md, Cells).  Chunks of 40 and of 8 evaluator
+# cells peak under 10 GB of device memory (PERF.md).
 SWEEP_LANDSCAPES, SWEEP_CHUNK = 16, 40
 SWEEP_SIGNAL_STRENGTHS = (0.0, 0.5, 0.75, 0.9, 1.0)
-EVAL_LANDSCAPES, EVAL_CHUNK = 8, 8
+EVAL_LANDSCAPES, EVAL_CHUNK = 4, 8
 EFFICIENCY_BUDGETS = ((100, 500), (100, 5000), (1000, 5000), (1000, 10000))
 # Phase 6: the card's oracles against the CPU's, and the surrogate sweep's
 # quality floor, beside the reference's mean max fitness over its
@@ -110,6 +138,37 @@ REFERENCE_MEAN_MAX, JAX_PACKAGE_MEAN_MAX = 0.905, 0.9444
 # Phase 6's per-cell configuration (bench.py:98-144's) and its host run's rounds.
 PHASE6_RUN = dict(rounds=10, sequences_batch_size=100, model_queries_per_batch=2000)
 PHASE6_HOST_ROUNDS = 3
+# Phase 6's sweeps, cut in depth to keep the script near 700 s with phases 8
+# and 9 (PERF.md, Cells): the surrogate sweep to bench.py's 5 starts x 1 of
+# its 4 seeds, the RNABinding generic sweep to 2 of its 4 landscapes.
+SURROGATE_SWEEP_SEEDS = (0,)
+RNA_SWEEP_LANDSCAPES = ("L100_RNA1", "L100_RNA2")
+# Phase 8: the fold on the card against the CPU (bitwise expected: gathers,
+# mins and f32 adds in one order), on seeded rows and on the structured rows
+# of tests/test_rna_fold.py; and the fused RNAFolding run's top true_score.
+FOLD_TOLERANCE = 1e-5
+FOLD_STRUCTURED = (
+    "GGGGGGAAAACCCCCC", "GGGGGG" + "A" * 8 + "CCCCCC", "GGGGGG" + "A" * 16 + "CCCCCC",
+    "GGGGGG" + "A" * 30 + "CCCCCC", "GGGGGAAAACCCCC", "GGGAGGAAAACCCCC",
+    "CCCCAAAAGGGGAAGGGGAAAACCCC", "GGGGGACCCCAAAAGGGGAAGGGGAAAACCCCACCCCC",
+    "GGGGAAAACCCCAAGGGGAAAACCCC", "GGGGGAGGGGAAAACCCCAAGGGGAAAACCCCACCCCC",
+    "GGGAAAACCC", "GGGGGAAAACCCCC", "GGGGGGGAAAACCCCCCC", "A" * 20, "GCAAGC",
+    "GGGAAACCC", "GGGAACCC", "GGGCUUCGGCCC", "GGGCAUCGGCCC", "GGGGCAACGCCCC",
+    "AGGGGGAAAACCCCCA",
+)
+FOLD_TOP = 95.396645
+# The fold sweep's rounds: a 10-round lockstep sweep of the launch-bound fold
+# took 85 s on an H100 (PERF.md), so its depth is cut; cells are held to
+# standalone runs of the same depth.
+FOLD_SWEEP_ROUNDS = 2
+# Phase 9: GFP at full width; card vs CPU, and the depth of its host run and sweep.
+GFP_TOLERANCE = 1e-4  # rtol and atol
+GFP_WIDTH = dict(layers=12, hidden=768)  # TAPE's bert-base; 12 heads, 256 tokens
+# Rows per GFP forward pass: the runner's proposal batch, so that no chunk of
+# a 100-row oracle call is padded.  The host run keeps the reference's 32:
+# its model queries come in small batches, each padded to a whole chunk.
+GFP_BATCH = 100
+GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS = 3, 1
 
 
 def card_line() -> str:
@@ -222,7 +281,7 @@ def check_run_frame(df, rounds: int, batch: int, budget: int, start: str, per_ro
 
 def no_duplex_launches(cuda_duplex, phase: str) -> None:
     counts = cuda_duplex.launch_counts()
-    assert not any(counts.values()), f"TF-Bind phase {phase} launched duplex builds: {counts}"
+    assert not any(counts.values()), f"phase {phase} launched duplex builds: {counts}"
 
 
 def timed(fn):
@@ -377,12 +436,12 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
 
 
 @contextlib.contextmanager
-def train_events(surrogate):
-    """CUDA events around every `surrogate.train` call while inside: [(start, end)]."""
+def call_events(module, name: str):
+    """CUDA events around every call of `module.<name>` while inside: [(start, end)]."""
     events = []
-    original = surrogate.train
+    original = getattr(module, name)
 
-    def timed_train(*args, **kwargs):
+    def timed_call(*args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = original(*args, **kwargs)
@@ -390,11 +449,22 @@ def train_events(surrogate):
         events.append((start, end))
         return out
 
-    surrogate.train = timed_train
+    setattr(module, name, timed_call)
     try:
         yield events
     finally:
-        surrogate.train = original
+        setattr(module, name, original)
+
+
+def step_walls(steps) -> dict:
+    """Seconds between consecutive (name, perf_counter) stamps, by the earlier name."""
+    return {name: b - a for (name, a), (_, b) in zip(steps, steps[1:])}
+
+
+def events_s(events) -> float:
+    """Seconds between each (start, end) pair of CUDA events, summed."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / 1e3
 
 
 def same_as_standalone(flexs, row, land, alphabet, runner_kw):
@@ -423,6 +493,7 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     problem = rosetta.registry()["3msi"]
     start = problem["starts"]["ed_3_wt"]
     cuda_duplex.reset_launch_counts()
+    steps = [("a oracles", time.perf_counter())]
 
     # a. The oracles, card vs CPU.
     land = rosetta.RosettaFolding(**problem["params"])
@@ -443,6 +514,7 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
 
     # b. The fused surrogate run: cold, warm (train split by CUDA events),
     # then profiled for launches and device time.
+    steps.append(("b cold", time.perf_counter()))
     runner_kw = dict(**PHASE6_RUN, model="surrogate", surrogate_spec=SurrogateSpec())
     rounds, batch, budget = (
         PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
@@ -456,12 +528,16 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
         return df, wall, land.cost - cost
 
     df_cold, cold_wall, _ = fused()
-    with train_events(surrogate) as events:
+    steps.append(("b warm", time.perf_counter()))
+    with call_events(surrogate, "train") as events:
         df, warm_wall, landscape_cost = fused()
-    train_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    train_s = events_s(events)
+    steps.append(("b profiled run and trace", time.perf_counter()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         df_profiled, profiled_wall, _ = fused()
-    kernels = device_kernels(prof.key_averages())
+    steps.append(("b device totals", time.perf_counter()))
+    kernels = device_kernels(prof)
+    steps.append(("b checks", time.perf_counter()))
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     pd.testing.assert_frame_equal(df_cold, df)
     pd.testing.assert_frame_equal(df, df_profiled)
@@ -486,6 +562,7 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     print(f"rosetta surrogate fused run: {json.dumps(fused_reading)}; the three runs' frames "
           f"are identical [{card}]")
 
+    steps.append(("c host", time.perf_counter()))
     # c. The host run: Adalead asking a CNN that is retrained every round.
     host_land = rosetta.RosettaFolding(**problem["params"])
     explorer = flexs.baselines.explorers.Adalead(
@@ -500,12 +577,14 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     print(f"rosetta host run (Adalead + CNN): wall {host_wall} s, top true_score {host_top}, "
           f"rows {len(df_host)} [{card}]")
 
-    # d. bench.py's surrogate sweep: 5 starts x 4 seeds, cell_mode "auto".
+    steps.append(("d surrogate sweep", time.perf_counter()))
+    # d. bench.py's surrogate sweep (5 starts, SURROGATE_SWEEP_SEEDS), cell_mode "auto".
     sweep_kw = dict(signal_strengths=[1.0], **runner_kw, cell_mode="auto")
     starts = list(problem["starts"].values())
     sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
-        [land], flexs.AAS, starts, seeds=[0, 1, 2, 3], **sweep_kw))
-    assert len(sweep) == 20 and (sweep["model_cost"] > 0).all()
+        [land], flexs.AAS, starts, seeds=list(SURROGATE_SWEEP_SEEDS), **sweep_kw))
+    assert len(sweep) == len(starts) * len(SURROGATE_SWEEP_SEEDS)
+    assert (sweep["model_cost"] > 0).all()
     mean_max = float(sweep["max_fitness"].mean())
     assert mean_max >= SURROGATE_SWEEP_FLOOR, mean_max
     for i in (0, len(sweep) - 1):
@@ -515,12 +594,13 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
                      "s_per_cell": sweep_wall / len(sweep), "mean_max_fitness": mean_max,
                      "reference_mean_max_fitness": REFERENCE_MEAN_MAX,
                      "jax_package_mean_max_fitness": JAX_PACKAGE_MEAN_MAX}
-    print(f"rosetta surrogate sweep: {json.dumps(sweep_reading)}; cells 1 and 20 equal "
-          f"their standalone runs [{card}]")
+    print(f"rosetta surrogate sweep: {json.dumps(sweep_reading)}; the first and last cells "
+          f"equal their standalone runs [{card}]")
 
-    # e. A generic NAM sweep over four RNABinding landscapes, in lockstep.
+    steps.append(("e rna sweep", time.perf_counter()))
+    # e. A generic NAM sweep over RNABinding landscapes, in lockstep.
     reg = rna.registry()
-    lands = [rna.RNABinding(**reg[f"L100_RNA{i}"]["params"]) for i in (1, 2, 3, 4)]
+    lands = [rna.RNABinding(**reg[name]["params"]) for name in RNA_SWEEP_LANDSCAPES]
     rna_starts = [reg["L100_RNA1"]["starts"][k] for k in (1, 2, 3, 4, 5)]
     cuda_duplex.reset_launch_counts()
     jit_runner.reset_run_counts()
@@ -532,7 +612,8 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     assert rna_counts[cuda_duplex.MAIN] > 0, "the RNABinding sweep never launched the kernel"
     stray = {v: n for v, n in rna_counts.items() if v != cuda_duplex.MAIN and n}
     assert not stray, f"the RNABinding sweep launched row-cost builds: {stray}"
-    assert len(rna_sweep) == 20 and (rna_sweep["max_fitness"] >= rna_sweep["start_fitness"]).all()
+    assert len(rna_sweep) == 5 * len(lands)
+    assert (rna_sweep["max_fitness"] >= rna_sweep["start_fitness"]).all()
     nam_kw = dict(**PHASE6_RUN, signal_strength=0.9)
     for i, land_i in ((0, lands[0]), (len(rna_sweep) - 1, lands[-1])):
         same_as_standalone(flexs, rna_sweep.iloc[i], land_i, flexs.RNAA, nam_kw)
@@ -542,11 +623,278 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
                    "mean_max_fitness": float(rna_sweep["max_fitness"].mean()),
                    "sequences_scored_per_s": int(rna_sweep["model_cost"].sum()
                                                  + rna_sweep["landscape_cost"].sum()) / rna_wall}
-    print(f"rna generic sweep (vmap): {json.dumps(rna_reading)}; cells 1 and 20 equal their "
-          f"standalone runs [{card}]")
+    print(f"rna generic sweep (vmap): {json.dumps(rna_reading)}; the first and last cells "
+          f"equal their standalone runs [{card}]")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 6 step walls (s): {json.dumps(walls)}")
     return {"oracle_max_abs_diff": oracle_diff, "fused": fused_reading,
             "host_wall_s": host_wall, "host_top": host_top, "surrogate_sweep": sweep_reading,
-            "rna_generic_sweep": rna_reading}
+            "rna_generic_sweep": rna_reading, "step_walls_s": walls}
+
+
+def fold_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 8 (a-e): the Zuker fold DP and RNAFolding through the three entry points."""
+    import pandas as pd
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexs_tpu_torch import profile_fold
+    from flexs_tpu_torch.landscapes import rna
+    from flexs_tpu_torch.ops import rna_fold
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
+    from flexs_tpu_torch.profile_main_path import device_kernels
+
+    cuda_duplex.reset_launch_counts()
+    rng = np.random.default_rng(SEED)
+    steps = [("a card vs CPU", time.perf_counter())]
+
+    # a. The fold on the card against the CPU.
+    em_card, em_cpu = (rna_fold.fold_energy_model(device=d) for d in ("cuda", "cpu"))
+    batches = [rng.integers(0, 4, (64, n)) for n in (14, 50, 100)]
+    by_len = {}
+    for seq in FOLD_STRUCTURED:
+        by_len.setdefault(len(seq), []).append(seq)
+    batches += [flexs.Alphabet(flexs.RNAA).encode(seqs) for seqs in by_len.values()]
+    fold_diff, bitwise = 0.0, True
+    dev = em_card["consts"].device
+    for tok in batches:
+        on_card = rna_fold.zuker_mfe_batch(torch.as_tensor(tok, device=dev), em_card).cpu()
+        on_cpu = rna_fold.zuker_mfe_batch(torch.as_tensor(tok), em_cpu)
+        assert on_card.shape == (len(tok),) and torch.isfinite(on_card).all()
+        fold_diff = max(fold_diff, float((on_card - on_cpu).abs().max()))
+        bitwise = bitwise and torch.equal(on_card, on_cpu)
+    assert fold_diff <= FOLD_TOLERANCE, fold_diff
+    print(f"fold: card vs CPU on {sum(map(len, batches))} rows (B=64 at L=14/50/100 and "
+          f"{len(FOLD_STRUCTURED)} structured rows): max |diff| {fold_diff}, bitwise {bitwise} "
+          f"[{card}]")
+
+    # b. profile_fold's readings.
+    steps.append(("b profile_fold", time.perf_counter()))
+    fold_profile = profile_fold.measure(dev)
+    print(f"fold profile (python -m flexs_tpu_torch.profile_fold): {json.dumps(fold_profile)} "
+          f"[{card}]")
+
+    # c. The fused run, then again under torch.profiler (CUDA activity only).
+    reg = rna.registry()
+    starts = [reg["L100_RNA1"]["starts"][k] for k in (1, 2, 3, 4, 5)]
+    land = rna.RNAFolding()
+    nam_kw = dict(**PHASE6_RUN, signal_strength=0.9)
+
+    def fused():
+        cost = land.cost
+        runner = flexs.runtime.DeviceAdaleadNAM(land, flexs.RNAA, starting_sequence=starts[0],
+                                                seed=0, **nam_kw)
+        (df, _), wall = timed(lambda: runner.run(verbose=False))
+        return df, wall, land.cost - cost
+
+    steps.append(("c fused", time.perf_counter()))
+    df, wall, landscape_cost = fused()
+    steps.append(("c profiled run and trace", time.perf_counter()))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        df_again, profiled_wall, _ = fused()
+    steps.append(("c device totals", time.perf_counter()))
+    kernels = device_kernels(prof)
+    steps.append(("c checks", time.perf_counter()))
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    pd.testing.assert_frame_equal(df, df_again)
+    rounds, batch, budget = (
+        PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
+    check_run_frame(df, rounds, batch, budget, starts[0], per_round=batch)
+    assert np.array_equal(df["true_score"].to_numpy(),
+                          land.get_fitness(df["sequence"].tolist()))
+    top = float(df["true_score"].max())
+    if FOLD_TOP is not None:
+        assert round(top, 6) == FOLD_TOP, top
+    queries = int(df["model_cost"].max()) + landscape_cost
+    fused_reading = {
+        "wall_s": wall, "queries_per_s": queries / wall, "top": top, "rows": len(df),
+        "profiled_wall_s": profiled_wall, "kernel_launches": sum(e.count for e in kernels),
+        "device_kernel_s": device_s, "device_idle_share_vs_profiled_wall": 1 - device_s
+        / profiled_wall, "top_kernels": [{"name": e.key[:80], "count": e.count,
+                                          "device_s": e.self_device_time_total / 1e6}
+                                         for e in kernels[:6]],
+    }
+    print(f"rnafolding fused run (L100_RNA1 start 1, NAM 0.9, 10 x 100 x 2000): "
+          f"{json.dumps(fused_reading)}; the two runs' frames are identical and true_score == "
+          f"get_fitness [{card}]")
+
+    # d. The host run.
+    steps.append(("d host", time.perf_counter()))
+    explorer = flexs.baselines.explorers.Adalead(
+        flexs.baselines.models.NoisyAbstractModel(land, 0.9, seed=0), rounds=PHASE6_HOST_ROUNDS,
+        sequences_batch_size=batch, model_queries_per_batch=budget, starting_sequence=starts[0],
+        alphabet=flexs.RNAA, seed=0,
+    )
+    (df_host, _), host_wall = timed(lambda: explorer.run(land, verbose=False))
+    check_run_frame(df_host, PHASE6_HOST_ROUNDS, batch, budget, starts[0], per_round=batch - 1)
+    assert np.array_equal(df_host["true_score"].to_numpy(),
+                          land.get_fitness(df_host["sequence"].tolist()))
+    host_top = float(df_host["true_score"].max())
+    print(f"rnafolding host run: wall {host_wall} s, top true_score {host_top}, rows "
+          f"{len(df_host)} [{card}]")
+
+    # e. A generic sweep over starts 1-5 in lockstep, FOLD_SWEEP_ROUNDS deep.
+    steps.append(("e sweep", time.perf_counter()))
+    sweep_kw = dict(nam_kw, rounds=FOLD_SWEEP_ROUNDS)
+    ss = sweep_kw.pop("signal_strength")
+    torch.cuda.reset_peak_memory_stats()
+    sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.RNAA, starts, [ss], seeds=[0], **sweep_kw, cell_mode="vmap"))
+    assert len(sweep) == 5 and (sweep["max_fitness"] >= sweep["start_fitness"]).all()
+    steps.append(("e standalone cells", time.perf_counter()))
+    for i in (0, len(sweep) - 1):
+        same_as_standalone(flexs, sweep.iloc[i], land, flexs.RNAA,
+                           dict(nam_kw, rounds=FOLD_SWEEP_ROUNDS))
+    sweep_reading = {
+        "cells": len(sweep), "rounds": FOLD_SWEEP_ROUNDS, "wall_s": sweep_wall,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "mean_max_fitness": float(sweep["max_fitness"].mean()),
+        "sequences_scored_per_s": int(sweep["model_cost"].sum()
+                                      + sweep["landscape_cost"].sum()) / sweep_wall,
+    }
+    print(f"rnafolding generic sweep (vmap, 5 starts): {json.dumps(sweep_reading)}; cells 1 "
+          f"and 5 equal their standalone runs [{card}]")
+    no_duplex_launches(cuda_duplex, "8")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 8 step walls (s): {json.dumps(walls)}")
+    return {"card_vs_cpu_max_abs_diff": fold_diff, "card_vs_cpu_bitwise": bitwise,
+            "profile": fold_profile, "fused": fused_reading, "host_wall_s": host_wall,
+            "host_top": host_top, "sweep": sweep_reading, "step_walls_s": walls}
+
+
+def tf32_state() -> dict:
+    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+
+def gfp_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 9 (a-d): the GFP oracle at full width through the three entry points.
+
+    TF32 is off for the whole phase (cuDNN's flag is switched off here and
+    restored after; matmuls run at PyTorch's default, full f32).
+    """
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tf32 = tf32_state()
+        assert not tf32["cuda.matmul.allow_tf32"] and not tf32["cudnn.allow_tf32"], tf32
+        assert tf32["float32_matmul_precision"] == "highest", tf32
+        print(f"gfp: TF32 off for the phase: {tf32}")
+        return _gfp_phases(flexs, cuda_duplex, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexs_tpu_torch.landscapes import bert_gfp
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
+    from flexs_tpu_torch.profile_main_path import device_kernels
+
+    cuda_duplex.reset_launch_counts()
+    steps = [("a landscapes and card vs CPU", time.perf_counter())]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        land = bert_gfp.BertGFPBrightness(**GFP_WIDTH, batch_size=GFP_BATCH)
+        cpu_land = bert_gfp.BertGFPBrightness(**GFP_WIDTH, device="cpu", batch_size=4)
+    assert any("DETERMINISTIC" in str(w.message) for w in caught), "expected the seeded oracle"
+    m = land.module
+    shape = {"layers": m.layers, "hidden": m.hidden, "heads": m.heads, "tokens": m.max_len,
+             "parameters": sum(p.numel() for p in m.parameters())}
+    assert (m.layers, m.hidden, m.heads, m.max_len) == (
+        GFP_WIDTH["layers"], GFP_WIDTH["hidden"], GFP_WIDTH["hidden"] // 64, 256), shape
+    rounds, batch, budget = (
+        PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
+
+    # a. The oracle on the card against the CPU.
+    starts = list(land.starts.values())
+    seqs = [land.gfp_wt_sequence] + starts
+    on_card, on_cpu = land.get_fitness(seqs), cpu_land.get_fitness(seqs)
+    assert np.isfinite(on_card).all()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=GFP_TOLERANCE, atol=GFP_TOLERANCE)
+    oracle_diff = float(np.abs(on_card - on_cpu).max())
+    print(f"gfp oracle {shape} (seeded init; no checkpoint in the checkout): card vs CPU on the "
+          f"wild type and 3 starts, max |diff| {oracle_diff}, scores {on_card.tolist()} [{card}]")
+
+    # b. The fused run under torch.profiler (CUDA activity only), the oracle
+    # timed by CUDA events.
+    steps.append(("b fused run and trace", time.perf_counter()))
+    with call_events(bert_gfp, "_gfp_fitness") as events:
+        runner = flexs.runtime.DeviceAdaleadNAM(
+            land, flexs.AAS, starting_sequence=starts[0], signal_strength=0.9, seed=0,
+            **PHASE6_RUN)
+        cost = land.cost
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (df, _), wall = timed(lambda: runner.run(verbose=False))
+        oracle_s = events_s(events)
+    peak = torch.cuda.max_memory_allocated()
+    landscape_cost = land.cost - cost
+    steps.append(("b device totals", time.perf_counter()))
+    kernels = device_kernels(prof)
+    steps.append(("b checks", time.perf_counter()))
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    check_run_frame(df, rounds, batch, budget, starts[0], per_round=batch)
+    truth = land.get_fitness(df["sequence"].tolist())
+    truth_diff = float(np.abs(df["true_score"].to_numpy() - truth).max())
+    assert truth_diff <= GFP_TOLERANCE, truth_diff
+    queries = int(df["model_cost"].max()) + landscape_cost
+    fused_reading = {
+        "wall_s": wall, "queries_per_s": queries / wall, "top": float(df["true_score"].max()),
+        "rows": len(df), "oracle_calls": len(events), "oracle_s": oracle_s,
+        "oracle_share_of_wall": oracle_s / wall, "peak_memory_bytes": peak,
+        "kernel_launches": sum(e.count for e in kernels), "device_kernel_s": device_s,
+        "device_idle_share": 1 - device_s / wall, "true_score_vs_get_fitness_max_diff":
+        truth_diff,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_s": e.self_device_time_total / 1e6} for e in kernels[:6]],
+    }
+    print(f"gfp fused run (ed_10_wt, NAM 0.9, 10 x 100 x 2000, under the profiler): "
+          f"{json.dumps(fused_reading)} [{card}]")
+
+    # c. The host run, on the reference's 32 rows a forward pass.
+    steps.append(("c host", time.perf_counter()))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        host_land = bert_gfp.BertGFPBrightness(**GFP_WIDTH)
+    explorer = flexs.baselines.explorers.Adalead(
+        flexs.baselines.models.NoisyAbstractModel(host_land, 0.9, seed=0),
+        rounds=GFP_HOST_ROUNDS, sequences_batch_size=batch, model_queries_per_batch=budget,
+        starting_sequence=starts[0], alphabet=flexs.AAS, seed=0,
+    )
+    (df_host, _), host_wall = timed(lambda: explorer.run(host_land, verbose=False))
+    check_run_frame(df_host, GFP_HOST_ROUNDS, batch, budget, starts[0], per_round=batch - 1)
+    host_top = float(df_host["true_score"].max())
+    print(f"gfp host run: wall {host_wall} s, top true_score {host_top}, rows {len(df_host)} "
+          f"[{card}]")
+
+    steps.append(("d sweep", time.perf_counter()))
+    # d. A generic sweep over the 3 starts, one cell after another: in lockstep
+    # every step scores all cells' rows, which costs the oracle-bound GFP
+    # run about 3x (194 s for these 3 cells at 2 rounds on an H100, PERF.md).
+    torch.cuda.reset_peak_memory_stats()
+    sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.AAS, starts, [0.9], seeds=[0], rounds=GFP_SWEEP_ROUNDS,
+        sequences_batch_size=batch, model_queries_per_batch=budget, cell_mode="map"))
+    assert len(sweep) == 3 and (sweep["max_fitness"] >= sweep["start_fitness"]).all()
+    scored = int(sweep["model_cost"].sum() + sweep["landscape_cost"].sum())
+    sweep_reading = {"cells": len(sweep), "rounds": GFP_SWEEP_ROUNDS, "wall_s": sweep_wall,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "sequences_scored_per_s": scored / sweep_wall,
+                     "max_fitness": sweep["max_fitness"].tolist()}
+    print(f"gfp generic sweep (map, 3 starts): {json.dumps(sweep_reading)} [{card}]")
+    no_duplex_launches(cuda_duplex, "9")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 9 step walls (s): {json.dumps(walls)}")
+    return {"shape": shape, "card_vs_cpu_max_abs_diff": oracle_diff, "fused": fused_reading,
+            "host_wall_s": host_wall, "host_top": host_top, "sweep": sweep_reading,
+            "step_walls_s": walls}
 
 
 def clock_line() -> str:
@@ -563,7 +911,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    import flexs_tpu_torch as flexs
+    try:
+        import flexs_tpu_torch as flexs
+    except ModuleNotFoundError as e:
+        # Run outside a checkout (the script alone in a directory): there is
+        # nothing to drive.
+        print(f"chip_smoke: {e}; run it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 1
     from flexs_tpu_torch import profile_duplex_rowcost as rowcost
     from flexs_tpu_torch.landscapes import rna
     from flexs_tpu_torch.ops import cuda_duplex
@@ -748,12 +1103,22 @@ def main() -> int:
     print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} and duplex_dp == plain (bitwise) at "
           f"B={tuple(rc)}; launches {rc_counts}")
 
-    # Wall of each phase, so the script's time can be kept near 600 s.
+    stamps.append(("8 fold", time.perf_counter()))
+    # 8. The fold DP and RNAFolding: no kernel of this port on its path.
+    fold_readings = fold_phases(flexs, cuda_duplex, card)
+    print(f"fold readings: {json.dumps(fold_readings)}")
+
+    stamps.append(("9 gfp", time.perf_counter()))
+    # 9. GFP's ProteinBERT oracle at full width: no kernel of this port either.
+    gfp_readings = gfp_phases(flexs, cuda_duplex, card)
+    print(f"gfp readings: {json.dumps(gfp_readings)}")
+
+    # Wall of each phase, so the script's time can be kept near 700 s.
     stamps.append(("end", time.perf_counter()))
-    phase_walls = {name: b - a for (name, a), (_, b) in zip(stamps, stamps[1:])}
+    phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 8. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 10. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",

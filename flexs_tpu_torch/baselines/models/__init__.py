@@ -9,3 +9,7 @@ from flexs_tpu_torch.baselines.models.noisy_abstract_model import (  # noqa: F40
     NoisyAbstractModel,
 )
 from flexs_tpu_torch.baselines.models.torch_model import TorchModel  # noqa: F401
+
+# Alias for users migrating from the reference's TF/Keras stack: the torch
+# wrapper fills the same role as flexs.baselines.models.KerasModel.
+KerasModel = TorchModel

@@ -1,10 +1,13 @@
-"""Weights carried over from the JAX package's Flax nets and runtime surrogates.
+"""Weights carried over from the JAX package's Flax nets, runtime surrogates and GFP oracle.
 
-The port's nets keep Flax's layer names and layouts (`Conv_i` kernels
-[k, in, out], `Dense_i` kernels [in, out], biases [out]) in one flat
-f32[nets, P] tensor, each layer's kernel then bias, layers in order.  So a
-Flax parameter tree, given as numpy arrays, maps onto the port's flat
+The port's surrogate nets keep Flax's layer names and layouts (`Conv_i`
+kernels [k, in, out], `Dense_i` kernels [in, out], biases [out]) in one
+flat f32[nets, P] tensor, each layer's kernel then bias, layers in order.
+So a Flax parameter tree, given as numpy arrays, maps onto the port's flat
 weights by reshaping and concatenating, with nothing transposed or flipped.
+The GFP oracle is a plain `nn.Module` with Flax's submodule names and
+torch's `Linear` layout, so its kernels are transposed
+(`bert_params_from_flax`).
 """
 from typing import Mapping
 
@@ -66,3 +69,48 @@ def surrogate_state_from_flax(spec, state):
         ),
         torch.tensor(weight),
     )
+
+
+def bert_params_from_flax(tree: Mapping) -> dict:
+    """A `landscapes.bert_gfp.ProteinBertRegressor` state dict (CPU) of Flax params.
+
+    `tree` is the JAX package's `ProteinBertRegressor` parameter tree
+    (`{"params": {...}}` or its inner mapping) as numpy arrays.  Flax
+    `Dense` kernels are [in, out] and torch `Linear` weights [out, in];
+    the attention's `DenseGeneral` kernels are [hidden, heads, head_dim]
+    (query, key, value) and [heads, head_dim, hidden] (out); LayerNorm
+    scales become weights.
+    """
+    p = tree["params"] if "params" in tree else tree
+    out = {}
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    def dense(name, src, kernel_2d=None):
+        kernel = np.asarray(src["kernel"], np.float32)
+        kernel = kernel.reshape(kernel.shape[0], -1) if kernel_2d is None else kernel_2d(kernel)
+        out[name + ".weight"] = f32(kernel.T).contiguous()
+        out[name + ".bias"] = f32(src["bias"]).reshape(-1)
+
+    def norm(name, src):
+        out[name + ".weight"], out[name + ".bias"] = f32(src["scale"]), f32(src["bias"])
+
+    out["token_embed.weight"] = f32(p["token_embed"]["embedding"])
+    out["pos_embed.weight"] = f32(p["pos_embed"]["embedding"])
+    norm("embed_norm", p["embed_norm"])
+    layers = sum(1 for name in p if name.startswith("layer_"))
+    for i in range(layers):
+        src, dst = p[f"layer_{i}"], f"layer_{i}."
+        attn = src["attention"]
+        for name in ("query", "key", "value"):
+            dense(dst + "attention." + name, attn[name])
+        dense(dst + "attention.out", attn["out"],
+              lambda k: k.reshape(-1, k.shape[-1]))  # [heads, head_dim, hidden]
+        norm(dst + "attention_norm", src["attention_norm"])
+        dense(dst + "intermediate", src["intermediate"])
+        dense(dst + "output", src["output"])
+        norm(dst + "output_norm", src["output_norm"])
+    for name in ("pooler", "value_hidden", "value_out"):
+        dense(name, p[name])
+    return out

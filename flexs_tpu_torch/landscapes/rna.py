@@ -1,4 +1,4 @@
-"""RNA binding landscape (ViennaRNA duplex energy rebuilt on tensors).
+"""RNA binding and folding landscapes (ViennaRNA rebuilt on tensors).
 
 Contract (reference flexs/landscapes/rna.py):
   * `RNABinding(targets, seq_length, conserved_region)`: fitness is the
@@ -6,6 +6,8 @@ Contract (reference flexs/landscapes/rna.py):
     complement minimum energy scaled to seq_length (:75-85, :108-112);
     sequences violating the conserved region score 0 (:98-105); name
     "RNABinding_T{targets}_L{seq_length}" (:64).
+  * `RNAFolding(norm_value)`: fitness = -MFE / norm_value (:15-27), the
+    MFE from the Zuker/Turner fold DP of `ops.rna_fold`.
   * `registry()`: 4 hidden 100-nt targets, starts for L in {14, 50, 100},
     single-target, two-target, and conserved two-target problems, 36 in
     total (:119-210; target/start strings reproduced verbatim: they are
@@ -18,7 +20,9 @@ makes the kernel's per-landscape plan (`cuda_duplex.make_plan`) once, so a
 call only launches.  `device_fitness()` exposes the pure
 `(params, tokens)` form for the fused runner; its params are an
 `RNAFitnessParams` (the plan, which holds the targets and the energy
-model, the norms and the conserved pattern).
+model, the norms and the conserved pattern).  RNAFolding's pure form is
+the module-level `_folding_fitness_fn`, shared by every instance, with a
+`FoldingFitnessParams`.
 """
 from typing import Dict, List, NamedTuple, Optional
 
@@ -28,7 +32,7 @@ import torch
 from flexs_tpu_torch.alphabet import RNAA, Alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.landscape import Landscape
-from flexs_tpu_torch.ops import cuda_duplex, rna_duplex
+from flexs_tpu_torch.ops import cuda_duplex, rna_duplex, rna_fold
 from flexs_tpu_torch.types import SEQUENCES_TYPE
 
 _RNA = Alphabet(RNAA)
@@ -154,6 +158,76 @@ class RNABinding(Landscape):
             return np.zeros(0, np.float64)
         scores = self.fitness_from_tokens(_RNA.encode(seqs))
         return scores.cpu().numpy().astype(np.float64)
+
+
+class FoldingFitnessParams(NamedTuple):
+    """What `_folding_fitness_fn` reads, on the landscape's device."""
+
+    em: dict  # the fold's energy tables (`ops.rna_fold.fold_energy_model`)
+    norm: torch.Tensor  # f32[], the normalization divisor
+
+
+def _folding_fitness_fn(params: FoldingFitnessParams, tokens):
+    """Pure fitness f32[B] of int64[B, L] tokens: -MFE / norm.
+
+    Module-level, so every RNAFolding instance shares it (the generic
+    sweep requires its landscapes to share one fitness function).
+    """
+    maxloop = params.em["interior_cost"].shape[0] - 2
+    return -rna_fold.zuker_mfe_batch(tokens, params.em, maxloop) / params.norm
+
+
+class RNAFolding(Landscape):
+    """RNA folding stability landscape (negative MFE).
+
+    The oracle is the Turner-structured Zuker DP of `ops.rna_fold`
+    (hairpin size curve, bulge/interior/1x1 terms from the calibrated
+    duplex tables, affine multiloop closure, dangles=2 helix-end
+    mismatches, tetraloop/triloop bonuses), the analog of the reference's
+    `RNA.fold` call (reference rna.py:15-27).  It folds sequences of any
+    length; one call folds a batch of one length.
+    """
+
+    def __init__(self, norm_value: float = 1, params=None, device=None):
+        """Create an RNAFolding landscape.
+
+        Args:
+            norm_value: Normalization divisor (fitness = -MFE / norm).
+            params: Duplex energy parameters the fold model derives its
+                sequence-dependent tables from (default: calibrated set).
+            device: Where the tables live and folding runs (default
+                "cuda"; pass "cpu" to fold on the CPU).
+        """
+        super().__init__(name="RNAFolding")
+        self.norm_value = norm_value
+        self.device = resolve_device(device)
+        p = params or rna_duplex.DuplexParams.calibrated()
+        self._fitness_params = FoldingFitnessParams(
+            rna_fold.fold_energy_model(p, self.device),
+            torch.tensor(norm_value, dtype=torch.float32, device=self.device),
+        )
+
+    def fitness_from_tokens(self, tokens) -> torch.Tensor:
+        """f32[B] fitness of int[B, L] RNA tokens, on the landscape's device."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        return _folding_fitness_fn(self._fitness_params, tokens)
+
+    def device_fitness(self):
+        """(pure fitness fn, params) pair for the fused runner and the sweeps."""
+        return _folding_fitness_fn, self._fitness_params
+
+    def _fitness_function(self, sequences: SEQUENCES_TYPE) -> np.ndarray:
+        # The reference folds each string on its own (reference
+        # rna.py:15-27, no fixed length): fold one batch per length.
+        seqs = list(sequences)
+        out = np.empty(len(seqs), np.float64)
+        by_len: Dict[int, list] = {}
+        for i, s in enumerate(seqs):
+            by_len.setdefault(len(s), []).append(i)
+        for idxs in by_len.values():
+            tokens = _RNA.encode([seqs[i] for i in idxs])
+            out[idxs] = self.fitness_from_tokens(tokens).cpu().numpy()
+        return out
 
 
 def registry() -> Dict[str, Dict]:

@@ -32,6 +32,7 @@ import functools
 import itertools
 import json
 import time
+from typing import NamedTuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -93,12 +94,28 @@ def _timed_run(runner) -> float:
     return time.perf_counter() - t0
 
 
-def device_kernels(events):
-    """The entries of `prof.key_averages()` that are kernels on the card, longest first."""
-    kernels = [
-        e for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+class DeviceTotal(NamedTuple):
+    """One name's work on the card: `key`, `count` launches, device time in us."""
+
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def device_kernels(prof):
+    """The kernels (and copies) a finished `torch.profiler.profile` saw on the card.
+
+    One entry per name, longest first, summed from the profiler's raw
+    events: `prof.key_averages()` builds a Python object and a call tree
+    for every event, which took 111 s for the half million events of one
+    profiled surrogate run on an H100's host (PERF.md).
+    """
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            count, ns = totals.get(e.name(), (0, 0))
+            totals[e.name()] = (count + 1, ns + e.duration_ns())
+    kernels = [DeviceTotal(name, count, ns / 1e3) for name, (count, ns) in totals.items() if ns]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return kernels
 
@@ -159,7 +176,7 @@ def sweep_chunk_profile() -> dict:
     _, profiled_window_wall = chunk(on_window=prof.start)
     prof.stop()
     events = prof.key_averages()
-    kernels = device_kernels(events)
+    kernels = device_kernels(prof)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     draws = [e for e in events if e.key in DRAW_OPS]
     return {
@@ -197,7 +214,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall = _timed_run(runner)
     duplex_launches = cuda_duplex.launches
-    kernels = device_kernels(prof.key_averages())
+    kernels = device_kernels(prof)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     # The main path's kernel is a template (duplex_dp_kernel<M, K>); the
     # row-cost builds' untemplated kernel of the same name never runs here.

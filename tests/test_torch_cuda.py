@@ -1,4 +1,4 @@
-"""The CUDA duplex kernels held against their plain version, on the card.
+"""The CUDA duplex kernels held against their plain version, and the port on the card.
 
 These tests need a CUDA card and the CUDA toolkit; elsewhere they skip.
 They import nothing of JAX, so on a machine without it they run as
@@ -291,3 +291,31 @@ def test_rna_generic_sweep_launches_the_kernel_and_equals_standalone(card):
         assert row.max_fitness == single["true_score"].max()
         assert row.model_cost == single["model_cost"].iloc[-1]
         assert row.landscape_cost == land.cost
+
+
+@pytest.mark.parametrize("length", [14, 50, 100])
+def test_fold_on_card_equals_cpu(card, length):
+    from flexs_tpu_torch.ops import rna_fold
+
+    tokens = np.random.default_rng(length).integers(0, 4, (32, length))
+    on_card = rna_fold.zuker_mfe_batch(
+        torch.as_tensor(tokens, device=card), rna_fold.fold_energy_model(device=card))
+    on_cpu = rna_fold.zuker_mfe_batch(torch.as_tensor(tokens),
+                                      rna_fold.fold_energy_model(device="cpu"))
+    assert on_card.device == card
+    assert torch.equal(on_card.cpu(), on_cpu), float((on_card.cpu() - on_cpu).abs().max())
+
+
+def test_gfp_oracle_on_card_within_1e4_of_cpu(card):
+    import warnings
+
+    from flexs_tpu_torch.landscapes import bert_gfp
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lands = [bert_gfp.BertGFPBrightness(hidden=128, layers=2, seed=1, device=d)
+                 for d in (card, "cpu")]
+    seqs = [bert_gfp.BertGFPBrightness.gfp_wt_sequence, *bert_gfp.BertGFPBrightness.starts.values()]
+    on_card, on_cpu = (land.get_fitness(seqs) for land in lands)
+    assert np.isfinite(on_card).all()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)

@@ -35,7 +35,8 @@ def test_port_sources_are_found():
                    "landscapes/additive_aav_packaging.py", "ops/pdb.py",
                    "baselines/models/torch_model.py", "baselines/models/cnn.py",
                    "baselines/models/mlp.py", "baselines/models/global_epistasis_model.py",
-                   "baselines/models/convert.py"):
+                   "baselines/models/convert.py", "ops/rna_fold.py", "landscapes/bert_gfp.py",
+                   "profile_fold.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -56,7 +57,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.evaluate, flexs_tpu_torch.landscapes.tf_binding, "
         "flexs_tpu_torch.landscapes.rosetta, flexs_tpu_torch.landscapes.additive_aav_packaging, "
         "flexs_tpu_torch.ops.pdb, flexs_tpu_torch.runtime.surrogate, "
-        "flexs_tpu_torch.baselines.models.torch_model, flexs_tpu_torch.baselines.models.convert; "
+        "flexs_tpu_torch.baselines.models.torch_model, flexs_tpu_torch.baselines.models.convert, "
+        "flexs_tpu_torch.ops.rna_fold, flexs_tpu_torch.landscapes.bert_gfp, "
+        "flexs_tpu_torch.profile_fold; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )
