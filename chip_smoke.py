@@ -92,7 +92,29 @@ Phases (any failed check raises, and the script exits nonzero):
      c. the host run, 3 rounds, on a landscape scoring 32 rows a pass;
      d. a generic sweep over the 3 starts, cut to 1 round, one cell after
         another ("map");
-  10. print the wall of each phase, one JSON line describing each kernel,
+  10. the rest of the models and the exact-GP surrogate on RNABinding
+     L100_RNA1 (b-d launch the main path's kernel through the oracle, and
+     no row-cost build may launch):
+     a. each of the eight regressors (ridge, Lasso, Bayesian ridge, GP,
+        k-NN, forest, boosting, extra tree) on the card against the CPU, on
+        301 numpy-seeded rows at L = 100 and 2,000 queries: k-NN and trees
+        carried across bitwise, linear models and a carried GP within 1e-4,
+        GPs fitted on each device within 2e-3, fitted trees by correlation;
+     b. the fused run: DeviceAdaleadNAM with model="surrogate" and
+        SurrogateSpec(arch="gp") (150 LML steps per round on the 1002-row
+        buffer), 10 x 100 x 2000 from start 1, seed 0, three times (cold;
+        warm with surrogate.train timed by CUDA events; under
+        torch.profiler, CUDA activity only): identical frames, run
+        invariants, true_score == get_fitness, 11 duplex launches and top
+        true_score 0.717676;
+     c. the host run: Adalead over an AdaptiveEnsemble of the port's 11
+        DynaPPO default members, 3 rounds: wall, top, the ensemble's
+        weights and each member's train seconds in the last round;
+     d. the GP sweep over starts 1-3 ("map"): wall, s per cell, mean max
+        fitness (a reading); its first cell equals the fused run of b and
+        its last a standalone run; a 2-cell "vmap" chunk equals the map
+        sweep's cells;
+  11. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -169,6 +191,24 @@ GFP_WIDTH = dict(layers=12, hidden=768)  # TAPE's bert-base; 12 heads, 256 token
 # its model queries come in small batches, each padded to a whole chunk.
 GFP_BATCH = 100
 GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS = 3, 1
+# Phase 10: the rest of the models and the exact-GP surrogate on RNABinding
+# L100_RNA1.  (a) Each regressor on the card against the CPU, on numpy-seeded
+# training rows at the landscape's width (labels from its oracle) and as many
+# queries again, half random, half mutants of training rows: k-NN and trees
+# carried across bitwise, the linear models and a GP carried across within
+# 1e-4.  A GP fitted on each device picks its best point among f32 values
+# flat to their last bits, so the two fits are held to the JAX package's
+# band between its own two GP paths (tests/test_surrogate_runner.py:143-148);
+# fitted trees differ where split gains tie to the last bit, so they are
+# held by agreement (the extra tree to tests/test_jax_trees.py's band).
+MODELS_ROWS, MODELS_QUERIES = 301, 2000
+MODELS_TOLERANCE = 1e-4
+GP_FIT_TOLERANCE = 2e-3
+TREES_MIN_CORR = {"random_forest": 0.99, "gradient_boosting": 0.99, "extra_trees": 0.9}
+# The fused GP run's duplex launches (the start and the 10 rounds'
+# measurements) and top true_score, as its first run on an H100 gave them.
+GP_FUSED_LAUNCHES, GP_FUSED_TOP = 11, 0.717676
+GP_SWEEP_STARTS = (1, 2, 3)
 
 
 def card_line() -> str:
@@ -277,6 +317,15 @@ def check_run_frame(df, rounds: int, batch: int, budget: int, start: str, per_ro
     assert costs.is_monotonic_increasing
     assert (np.diff(costs.to_numpy()) <= budget + batch).all()
     assert np.isfinite(df["true_score"]).all()
+
+
+def path_launches(cuda_duplex, path: str) -> int:
+    """Launches of the main kernel since the last reset: at least one, and no row-cost build."""
+    counts = cuda_duplex.launch_counts()
+    assert counts[cuda_duplex.MAIN] > 0, f"the {path} run never launched the duplex kernel"
+    stray = {v: n for v, n in counts.items() if v != cuda_duplex.MAIN and n}
+    assert not stray, f"the {path} run launched row-cost builds: {stray}"
+    return counts[cuda_duplex.MAIN]
 
 
 def no_duplex_launches(cuda_duplex, phase: str) -> None:
@@ -897,6 +946,237 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
             "step_walls_s": walls}
 
 
+def _mutants(rng, tokens, n: int) -> np.ndarray:
+    """n copies of random rows of `tokens`, each with 1-3 random positions redrawn."""
+    out = tokens[rng.integers(0, len(tokens), n)].copy()
+    for row in out:
+        pos = rng.choice(out.shape[1], rng.integers(1, 4), replace=False)
+        row[pos] = rng.integers(0, 4, len(pos))
+    return out
+
+
+def default_members(flexs, seq_len: int, alphabet: str, device=None) -> list:
+    """The port's counterparts of the JAX package's 11 DynaPPO default members.
+
+    `tpu_native_default_models` (flexs_tpu/baselines/explorers/dyna_ppo.py:55-82),
+    at its widths and defaults.
+    """
+    m = flexs.baselines.models
+    dev = {} if device is None else {"device": device}
+    return [
+        m.GlobalEpistasisModel(seq_len, 100, alphabet, **dev),
+        m.MLP(seq_len, 200, alphabet, **dev),
+        m.CNN(seq_len, 32, 100, alphabet, **dev),
+        m.TorchRidgeRegression(alphabet, alpha=0.0, name="linear_regression", **dev),
+        m.TorchRandomForest(alphabet, **dev),
+        m.TorchKNNRegressor(alphabet, **dev),
+        m.TorchLasso(alphabet, **dev),
+        m.TorchBayesianRidge(alphabet, **dev),
+        m.TorchGaussianProcessRegressor(alphabet, **dev),
+        m.TorchGradientBoosting(alphabet, **dev),
+        m.TorchExtraTree(alphabet, **dev),
+    ]
+
+
+def regressors_card_vs_cpu(flexs, land, card: str) -> dict:
+    """Phase 10a: each regressor fitted and queried on the card and on the CPU."""
+    rng = np.random.default_rng(SEED)
+    alphabet = flexs.Alphabet(flexs.RNAA)
+    length = land.seq_length
+    tokens = rng.integers(0, 4, (MODELS_ROWS, length))
+    queries = np.concatenate([rng.integers(0, 4, (MODELS_QUERIES // 2, length)),
+                              _mutants(rng, tokens, MODELS_QUERIES - MODELS_QUERIES // 2)])
+    seqs = alphabet.decode(tokens)
+    labels = np.asarray(land.get_fitness(seqs))
+    names = ("linear_regression", "lasso", "bayesian_ridge", "gaussian_process",
+             "nearest_neighbors", "random_forest", "gradient_boosting", "extra_trees")
+    members = {}
+    for dev in ("cuda", "cpu"):
+        built = [m for m in default_members(flexs, length, flexs.RNAA, dev)
+                 if m.name in names]
+        members[dev] = {m.name: m for m in built}
+    readings = {}
+    for name in names:
+        on_card, on_cpu = members["cuda"][name], members["cpu"][name]
+        _, fit_s = timed(lambda: on_card.train(seqs, labels))
+        on_cpu.train(seqs, labels)
+        (p_card, _), predict_s = timed(lambda: (on_card.fitness_from_tokens(queries), None))
+        p_cpu = on_cpu.fitness_from_tokens(queries)
+        assert p_card.shape == (len(queries),) and np.isfinite(p_card).all(), name
+        reading = {"fit_s": fit_s, "predict_s": predict_s,
+                   "fitted_max_abs_diff": float(np.abs(p_card - p_cpu).max())}
+        if name == "nearest_neighbors":
+            assert np.array_equal(p_card, p_cpu), reading
+        elif name in ("linear_regression", "lasso", "bayesian_ridge"):
+            assert reading["fitted_max_abs_diff"] <= MODELS_TOLERANCE, (name, reading)
+        elif name == "gaussian_process":
+            assert reading["fitted_max_abs_diff"] <= GP_FIT_TOLERANCE, reading
+            # The CPU's fit carried to the card: the posterior on both.
+            state = on_cpu._state
+            on_card._state = type(state)(
+                state.train_tokens.cuda(), state.valid.cuda(),
+                type(state.fit)(*(t.cuda() for t in state.fit)))
+            diffs = [float(np.abs(on_card.fitness_from_tokens(queries)
+                                  - on_cpu.fitness_from_tokens(queries)).max()),
+                     float(np.abs(on_card.fitness_std_from_tokens(queries)
+                                  - on_cpu.fitness_std_from_tokens(queries)).max())]
+            reading["carried_mean_std_max_abs_diff"] = diffs
+            assert max(diffs) <= MODELS_TOLERANCE, reading
+        else:
+            reading["fitted_corr"] = float(np.corrcoef(p_card, p_cpu)[0, 1])
+            assert reading["fitted_corr"] >= TREES_MIN_CORR[name], (name, reading)
+            on_card._state = tuple(t.cuda() for t in on_cpu._state)
+            carried = on_card.fitness_from_tokens(queries)
+            reading["carried_max_abs_diff"] = float(np.abs(carried - p_cpu).max())
+            assert np.array_equal(carried, p_cpu), (name, reading)
+        readings[name] = reading
+    print(f"regressors card vs CPU ({MODELS_ROWS} rows at L={length}, {len(queries)} queries): "
+          f"{json.dumps(readings)} [{card}]")
+    return readings
+
+
+def model_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 10 (a-d): the rest of the models and the exact-GP surrogate on L100_RNA1."""
+    import pandas as pd
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexs_tpu_torch.landscapes import rna
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
+    from flexs_tpu_torch.profile_main_path import device_kernels
+    from flexs_tpu_torch.runtime import SurrogateSpec, surrogate
+
+    reg = rna.registry()
+    land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+    starts = [reg["L100_RNA1"]["starts"][k] for k in GP_SWEEP_STARTS]
+    steps = [("a regressors", time.perf_counter())]
+    regressors = regressors_card_vs_cpu(flexs, land, card)
+
+    # b. The fused GP run: cold (launches counted), warm (surrogate.train
+    # timed by CUDA events), then under torch.profiler.
+    spec = SurrogateSpec(arch="gp")
+    runner_kw = dict(**PHASE6_RUN, model="surrogate", surrogate_spec=spec)
+    rounds, batch, budget = (
+        PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
+
+    def fused():
+        cost = land.cost
+        runner = flexs.runtime.DeviceAdaleadNAM(land, flexs.RNAA, starting_sequence=starts[0],
+                                                seed=0, **runner_kw)
+        (df, meta), wall = timed(lambda: runner.run(verbose=False))
+        assert meta["model_name"] == "gaussian_process"
+        return df, wall, land.cost - cost
+
+    steps.append(("b cold", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    df, cold_wall, landscape_cost = fused()
+    launches = path_launches(cuda_duplex, "fused GP")
+    steps.append(("b warm", time.perf_counter()))
+    with call_events(surrogate, "train") as events:
+        df_warm, warm_wall, _ = fused()
+    train_s = events_s(events)
+    steps.append(("b profiled run and trace", time.perf_counter()))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        df_profiled, profiled_wall, _ = fused()
+    steps.append(("b device totals", time.perf_counter()))
+    kernels = device_kernels(prof)
+    steps.append(("b checks", time.perf_counter()))
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    pd.testing.assert_frame_equal(df, df_warm)
+    pd.testing.assert_frame_equal(df, df_profiled)
+    check_run_frame(df, rounds, batch, budget, starts[0], per_round=batch)
+    assert df["measurement_cost"].max() == len(df) == landscape_cost
+    assert (df[df["round"] > 0]["model_cost"] > 0).all()
+    truth_diff = float(np.abs(df["true_score"].to_numpy()
+                              - land.get_fitness(df["sequence"].tolist())).max())
+    assert truth_diff <= 1e-6, truth_diff
+    top = float(df["true_score"].max())
+    assert launches == GP_FUSED_LAUNCHES, launches
+    assert round(top, 6) == GP_FUSED_TOP, top
+    queries = int(df["model_cost"].max()) + landscape_cost
+    fused_reading = {
+        "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+        "queries_per_s": queries / warm_wall, "top": top, "rows": len(df),
+        "duplex_launches": launches, "train_s": train_s, "train_calls": len(events),
+        "train_share_of_warm_wall": train_s / warm_wall, "profiled_wall_s": profiled_wall,
+        "kernel_launches": sum(e.count for e in kernels), "device_kernel_s": device_s,
+        "device_idle_share_vs_profiled_wall": 1 - device_s / profiled_wall,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_s": e.self_device_time_total / 1e6} for e in kernels[:8]],
+    }
+    print(f"gp surrogate fused run (L100_RNA1 start 1, 150 LML steps, 10 x 100 x 2000): "
+          f"{json.dumps(fused_reading)}; the three runs' frames are identical and true_score == "
+          f"get_fitness [{card}]")
+
+    # c. The host run: Adalead over an AdaptiveEnsemble of the 11 default members.
+    steps.append(("c host", time.perf_counter()))
+    host_land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+    members = default_members(flexs, len(starts[0]), flexs.RNAA)
+    train_s = {}
+
+    def timed_train(member):
+        original = member.train
+
+        def train(*args, **kwargs):
+            _, train_s[member.name] = timed(lambda: original(*args, **kwargs))
+        return train
+
+    for member in members:
+        member.train = timed_train(member)
+    ensemble = flexs.baselines.models.AdaptiveEnsemble(members)
+    explorer = flexs.baselines.explorers.Adalead(
+        ensemble, rounds=PHASE6_HOST_ROUNDS, sequences_batch_size=batch,
+        model_queries_per_batch=budget, starting_sequence=starts[0], alphabet=flexs.RNAA,
+        seed=0,
+    )
+    cuda_duplex.reset_launch_counts()
+    (df_host, meta_host), host_wall = timed(lambda: explorer.run(host_land, verbose=False))
+    host_launches = path_launches(cuda_duplex, "host ensemble")
+    check_run_frame(df_host, PHASE6_HOST_ROUNDS, batch, budget, starts[0], per_round=batch - 1)
+    assert meta_host["model_name"] == ensemble.name and len(members) == 11
+    weights = ensemble.weights
+    assert np.isfinite(weights).all() and abs(weights.sum() - 1) < 1e-9, weights
+    host_reading = {
+        "wall_s": host_wall, "top": float(df_host["true_score"].max()), "rows": len(df_host),
+        "duplex_launches": host_launches,
+        "weights": dict(zip([m.name for m in members], weights.tolist())),
+        "last_round_train_s": train_s,
+    }
+    print(f"host run (Adalead + AdaptiveEnsemble of 11 members, 3 rounds): "
+          f"{json.dumps(host_reading)} [{card}]")
+
+    # d. The GP sweep over starts 1-3, one cell after another, and a 2-cell
+    # lockstep chunk.
+    steps.append(("d sweep", time.perf_counter()))
+    sweep_kw = dict(signal_strengths=[1.0], seeds=[0], **runner_kw)
+    cuda_duplex.reset_launch_counts()
+    sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.RNAA, starts, **sweep_kw, cell_mode="map"))
+    sweep_launches = path_launches(cuda_duplex, "GP sweep")
+    assert len(sweep) == len(starts) and (sweep["model_cost"] > 0).all()
+    first = sweep.iloc[0]
+    assert first["max_fitness"] == df["true_score"].max(), first
+    assert first["model_cost"] == df["model_cost"].iloc[-1], first
+    assert first["landscape_cost"] == landscape_cost, first
+    steps.append(("d standalone last cell", time.perf_counter()))
+    same_as_standalone(flexs, sweep.iloc[-1], land, flexs.RNAA, runner_kw)
+    steps.append(("d vmap chunk", time.perf_counter()))
+    lockstep, lockstep_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.RNAA, starts[:2], **sweep_kw, cell_mode="vmap"))
+    pd.testing.assert_frame_equal(lockstep, sweep.iloc[:2], check_exact=True)
+    sweep_reading = {"cells": len(sweep), "wall_s": sweep_wall, "duplex_launches": sweep_launches,
+                     "s_per_cell": sweep_wall / len(sweep),
+                     "mean_max_fitness": float(sweep["max_fitness"].mean()),
+                     "vmap_chunk_cells": len(lockstep), "vmap_chunk_wall_s": lockstep_wall}
+    print(f"gp surrogate sweep (map, starts {list(GP_SWEEP_STARTS)}): {json.dumps(sweep_reading)}; "
+          f"its first cell equals the fused run, its last a standalone run, and a 2-cell vmap "
+          f"chunk equals its map cells [{card}]")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 10 step walls (s): {json.dumps(walls)}")
+    return {"regressors": regressors, "fused": fused_reading, "host": host_reading,
+            "sweep": sweep_reading, "step_walls_s": walls}
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
@@ -1113,12 +1393,17 @@ def main() -> int:
     gfp_readings = gfp_phases(flexs, cuda_duplex, card)
     print(f"gfp readings: {json.dumps(gfp_readings)}")
 
+    stamps.append(("10 models", time.perf_counter()))
+    # 10. The rest of the models and the exact-GP surrogate.
+    model_readings = model_phases(flexs, cuda_duplex, card)
+    print(f"model readings: {json.dumps(model_readings)}")
+
     # Wall of each phase, so the script's time can be kept near 700 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 10. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 11. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -1128,6 +1413,8 @@ def main() -> int:
         "launches": fused_counts[cuda_duplex.MAIN],
         "host_launches": host_counts[cuda_duplex.MAIN],
         "rna_generic_sweep_launches": surrogate_readings["rna_generic_sweep"]["duplex_launches"],
+        "gp_fused_launches": model_readings["fused"]["duplex_launches"],
+        "gp_host_launches": model_readings["host"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

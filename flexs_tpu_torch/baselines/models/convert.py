@@ -1,4 +1,4 @@
-"""Weights carried over from the JAX package's Flax nets, runtime surrogates and GFP oracle.
+"""State carried over from the JAX package: Flax nets, runtime surrogates, fitted models, GFP.
 
 The port's surrogate nets keep Flax's layer names and layouts (`Conv_i`
 kernels [k, in, out], `Dense_i` kernels [in, out], biases [out]) in one
@@ -7,13 +7,17 @@ So a Flax parameter tree, given as numpy arrays, maps onto the port's flat
 weights by reshaping and concatenating, with nothing transposed or flipped.
 The GFP oracle is a plain `nn.Module` with Flax's submodule names and
 torch's `Linear` layout, so its kernels are transposed
-(`bert_params_from_flax`).
+(`bert_params_from_flax`).  The fitted state of the linear, GP, k-NN
+and tree models maps array for array (`linear_state_from_jax`,
+`gp_state_from_jax`, `knn_state_from_jax`, `trees_from_jax`), so that
+both packages' predict paths run on identical state.
 """
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from flexs_tpu_torch.baselines.models.torch_gp import GPFit, GPState, KNNState
 from flexs_tpu_torch.baselines.models.torch_model import AdamState
 
 # Layer names of each arch's net, in the port's (and Flax's) order.
@@ -53,10 +57,16 @@ def surrogate_state_from_flax(spec, state):
 
     Carries the members' weights, Adam's moments and step count
     (`optax.adam`'s `ScaleByAdamState`) and the combine weights, so that
-    the two packages can take a training step from the same state.
+    the two packages can take a training step from the same state; for
+    arch "gp", the exact posterior's state (`gp_state_from_jax`).
     """
     from flexs_tpu_torch.runtime.surrogate import SurrogateState
 
+    if spec.arch == "gp":
+        gp = gp_state_from_jax(**state.params)
+        return SurrogateState(GPState(*(
+            t[None] for t in (gp.train_tokens, gp.valid)), GPFit(*(t[None] for t in gp.fit))),
+            torch.ones((1, 1)))
     adam = state.opt_state[0]
     count = np.asarray(adam.count, np.int64).reshape(-1)
     weight = np.asarray(state.weight, np.float32).reshape(1, -1)
@@ -114,3 +124,51 @@ def bert_params_from_flax(tree: Mapping) -> dict:
     for name in ("pooler", "value_hidden", "value_out"):
         dense(name, p[name])
     return out
+
+
+def _tensor(a, dtype, device):
+    return torch.tensor(np.asarray(a), device=device).to(dtype)
+
+
+def linear_state_from_jax(coef, intercept=None, device="cpu"):
+    """(coef f32[P + 1] with the bias last, intercept) of a JAX linear model's fit.
+
+    `JaxRidgeRegression._coef` holds the bias as its last entry;
+    `JaxBayesianRidge` and `JaxLasso` keep `_coef` f32[P] and `_intercept`.
+    Set the pair as a port model's `_coef` and `_intercept`.
+    """
+    coef = _tensor(coef, torch.float32, device)
+    if intercept is None:
+        return coef, 0.0
+    return torch.cat([coef, torch.zeros(1, device=coef.device)]), float(np.asarray(intercept))
+
+
+def gp_state_from_jax(train_tokens, theta, dual, chol, valid, device="cpu") -> GPState:
+    """A `TorchGaussianProcessRegressor`'s state of the JAX model's (padded) fit.
+
+    The arguments are `JaxGaussianProcessRegressor._state`'s fields (or the
+    GP surrogate's `params`); padded rows stay masked by `valid`.
+    """
+    return GPState(
+        _tensor(train_tokens, torch.long, device), _tensor(valid, torch.bool, device),
+        GPFit(*(_tensor(a, torch.float32, device) for a in (theta, dual, chol))),
+    )
+
+
+def knn_state_from_jax(train_tokens, train_labels, valid, k, device="cpu") -> KNNState:
+    """A `TorchKNNRegressor`'s state of `JaxKNNRegressor._state`'s fields."""
+    return KNNState(_tensor(train_tokens, torch.long, device),
+                    _tensor(train_labels, torch.float32, device),
+                    _tensor(valid, torch.bool, device), int(k))
+
+
+def trees_from_jax(feats, leaves, init=None, device="cpu"):
+    """A tree model's state of the JAX model's `_state`.
+
+    (feat, leaf) for `JaxRandomForest` ([trees, ...]) and `JaxExtraTree`
+    (one tree); (init, feat, leaf) for `JaxGradientBoosting`.
+    """
+    state = (_tensor(feats, torch.long, device), _tensor(leaves, torch.float32, device))
+    if init is None:
+        return state
+    return (_tensor(init, torch.float32, device),) + state

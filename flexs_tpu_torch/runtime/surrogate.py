@@ -20,7 +20,11 @@ Semantics kept from the JAX package (and, through it, the Keras fit):
     step count are kept);
   * ensembles combine members by weight (uniform: the plain Ensemble mean;
     `adaptive`: holdout r^2 weights, reference adaptive_ensemble.py);
-  * arch "linear" is fitted in closed form (weighted minimum-norm OLS).
+  * arch "linear" is fitted in closed form (weighted minimum-norm OLS);
+  * arch "gp" is the exact GP posterior (`baselines/models/torch_gp.py`),
+    refitted every round on the buffer's live rows, each sequence's first
+    occurrence only (a duplicate row makes the kernel matrix exactly
+    singular); one member, no Adam state.
 
 State layout: every net (a cell's ensemble member) is one row of a flat
 weight tensor, and a state may hold the nets of C cells at once (net
@@ -29,7 +33,10 @@ cells of a lockstep sweep chunk, train and predict as one batch, where the
 JAX package uses `vmap`.  Randomness comes from one `torch.Generator` per
 cell, drawn in a fixed order: init; then each `train` call's holdout split
 (adaptive only), per epoch a permutation per member, per minibatch the
-dropout masks.  A cell draws the same whatever the number of cells.
+dropout masks.  A cell draws the same whatever the number of cells.  The
+GP draws nothing, and fits and predicts cell by cell with the
+single-matrix factorization and solves, so that a cell's numbers do not
+depend on which batched routine a library picks for C matrices.
 """
 import functools
 from typing import NamedTuple, Sequence, Union
@@ -40,6 +47,8 @@ from torch import nn
 from flexs_tpu_torch.baselines.models.cnn import CNNModule
 from flexs_tpu_torch.baselines.models.global_epistasis_model import GlobalEpistasisModule
 from flexs_tpu_torch.baselines.models.mlp import MLPModule
+from flexs_tpu_torch.baselines.models.torch_gp import GPFit, GPState, gp_fit, gp_posterior, hamming
+from flexs_tpu_torch.baselines.models.torch_linear import ridge_coef
 from flexs_tpu_torch.baselines.models.torch_model import (
     AdamState,
     Dense,
@@ -50,7 +59,7 @@ from flexs_tpu_torch.baselines.models.torch_model import (
     one_hot,
 )
 
-ARCHS = ("cnn", "mlp", "gem", "linear")
+ARCHS = ("cnn", "mlp", "gem", "linear", "gp")
 
 
 class LinearModule(nn.Module):
@@ -75,7 +84,7 @@ class SurrogateSpec(NamedTuple):
     defaults of 20 epochs at batch 256 with Adam(1e-3).
     """
 
-    arch: str = "cnn"  # "cnn" | "mlp" | "gem" | "linear" | "gp" (not ported)
+    arch: str = "cnn"  # "cnn" | "mlp" | "gem" | "linear" | "gp"
     ensemble_size: int = 1
     num_filters: int = 32
     hidden_size: int = 100
@@ -83,7 +92,7 @@ class SurrogateSpec(NamedTuple):
     epochs: int = 20
     batch_size: int = 256
     learning_rate: float = 1e-3
-    # arch="gp" only (not ported yet): LML Adam steps per round.
+    # arch="gp" only: LML Adam steps per round.
     gp_opt_steps: int = 150
     # Adaptive r^2 reweighting (reference adaptive_ensemble.py:71-96): with
     # >= 10 live rows, members train on a random (1 - val) split and the
@@ -117,17 +126,14 @@ class SurrogateSpec(NamedTuple):
 class SurrogateState(NamedTuple):
     """Surrogate state of C cells of M members each, on the run's device."""
 
-    nets: AdamState  # weights and Adam state, C * M rows (net n = cell n // M)
+    # Weights and Adam state, C * M rows (net n = cell n // M); for arch
+    # "gp", the cells' exact posteriors (a leading cell axis on every field).
+    nets: Union[AdamState, GPState]
     weight: torch.Tensor  # f32[C, M]: combine weight per member (sums to 1)
 
 
 def check_spec(spec: SurrogateSpec) -> None:
     """Raise for an arch the port does not have."""
-    if spec.arch == "gp":
-        raise NotImplementedError(
-            "arch='gp' is not ported yet: the exact-GP surrogate needs jax_gp.py "
-            "(ROADMAP.md, item 13; the GP part of item 15)"
-        )
     if spec.arch not in ARCHS:
         raise ValueError(f"unknown surrogate arch {spec.arch!r}")
 
@@ -158,11 +164,29 @@ def init_state(spec: SurrogateSpec, alphabet_size: int, length: int, generators:
     """Fresh state of `spec.ensemble_size` members per generator (one per cell).
 
     Each cell's members are drawn from its generator, on its device.
-    `capacity` (the measured buffer's rows) is the JAX signature's; only
-    the exact GP, not ported, needs it.
+    `capacity` (the measured buffer's rows) is required for arch "gp",
+    whose state (training rows, dual coefficients, Cholesky factor) is
+    shaped by it; other archs ignore it.
     """
     check_spec(spec)
     gens = _gens(generators)
+    if spec.arch == "gp":
+        if capacity < 1:
+            raise ValueError('arch="gp" needs init_state(..., capacity=<measured-buffer '
+                             "capacity>): its posterior state is shaped by it")
+        if spec.ensemble_size != 1 or spec.adaptive:
+            raise ValueError('arch="gp" is an exact posterior: ensemble_size must be 1 and '
+                             "adaptive False (ensembling a deterministic GP is a no-op)")
+        dev, cells = gens[0].device, len(gens)
+        return SurrogateState(
+            GPState(
+                torch.zeros((cells, capacity, length), dtype=torch.long, device=dev),
+                torch.zeros((cells, capacity), dtype=torch.bool, device=dev),
+                GPFit(torch.zeros((cells, 2), device=dev), torch.zeros((cells, capacity), device=dev),
+                      torch.eye(capacity, device=dev).repeat(cells, 1, 1)),
+            ),
+            torch.ones((cells, 1), device=dev),
+        )
     net = module(spec, alphabet_size, length)
     members = spec.ensemble_size
     params = torch.cat([init_flat(net, members, g) for g in gens])
@@ -194,6 +218,8 @@ def train(spec: SurrogateSpec, alphabet_size: int, state: SurrogateState, tokens
     dev = truth.device
     cells, cap = truth.shape
     n_rows = torch.as_tensor(n_rows, device=dev)
+    if spec.arch == "gp":
+        return state._replace(nets=_gp_train(spec, alphabet_size, tokens, truth, n_rows))
     bs = min(spec.batch_size, cap)
     padded = -(-cap // bs) * bs
 
@@ -230,24 +256,43 @@ def train(spec: SurrogateSpec, alphabet_size: int, state: SurrogateState, tokens
 def _closed_form_ols(x, y, w, members: int) -> torch.Tensor:
     """Weighted minimum-norm OLS weights f32[C * members, L * A + 1], per cell.
 
-    The one-hot blocks are collinear with the bias column, so the Gram
-    matrix is rank-deficient; an eigh pseudo-inverse with a 1e-6 * max
-    cutoff gives sklearn LinearRegression's fitted values.  Members are
-    deterministic and identical.  Cells are solved one by one, so that a
-    cell's fit is the same whatever the number of cells.
+    `torch_linear.ridge_coef` at lambda 0: sklearn LinearRegression's
+    fitted values.  Members are deterministic and identical.  Cells are
+    solved one by one, so that a cell's fit is the same whatever the
+    number of cells.
     """
-    coefs = []
-    for xc, yc, wc in zip(x, y, w):
-        xf = torch.cat([xc.reshape(len(wc), -1), torch.ones((len(wc), 1), device=x.device)], 1)
-        xw = xf * wc[:, None]
-        gram = xw.T @ xf
-        rhs = xw.T @ yc
-        # LAPACK's f32 eigh can fail to converge on this singular matrix
-        # (many zero eigenvalues); f64 does not.
-        s, v = torch.linalg.eigh(gram.double())
-        inv_s = torch.where(s > 1e-6 * s.max(), 1.0 / s, 0.0)
-        coefs.append((v @ (inv_s * (v.T @ rhs.double()))).float())
+    coefs = [ridge_coef(xc.reshape(len(wc), -1), yc, wc) for xc, yc, wc in zip(x, y, w)]
     return torch.stack(coefs).repeat_interleave(members, dim=0)
+
+
+def _gp_train(spec, alphabet_size, tokens, truth, n_rows) -> GPState:
+    """Each cell's exact GP refitted on its live rows, first occurrences only."""
+    cap = truth.shape[1]
+    rows = torch.arange(cap, device=truth.device)
+    earlier = rows[None, :] < rows[:, None]
+    fits, valids = [], []
+    for c in range(len(truth)):
+        valid = (rows < n_rows[c]) & torch.isfinite(truth[c])
+        # A duplicate row makes the kernel matrix exactly singular (the f32
+        # factorization fails and every later round is NaN): keep only each
+        # sequence's first live occurrence.
+        same = hamming(tokens[c], tokens[c], alphabet_size) == 0
+        valid = valid & ~(same & earlier & valid[None, :]).any(dim=1)
+        fits.append(gp_fit(tokens[c], truth[c], valid, alphabet_size, spec.gp_opt_steps))
+        valids.append(valid)
+    return GPState(tokens, torch.stack(valids), GPFit(*map(torch.stack, zip(*fits))))
+
+
+def _gp_posterior(state: SurrogateState, tokens, alphabet_size: int, with_std: bool):
+    """Per-cell exact posterior (mean, std or None) f32[C, B] of tokens int[C, B, L]."""
+    gp = state.nets
+    out = []
+    for c in range(len(tokens)):
+        fit = GPFit(*(t[c] for t in gp.fit))
+        out.append(gp_posterior(tokens[c], gp.train_tokens[c], fit, gp.valid[c],
+                                alphabet_size, with_std))
+    mu = torch.stack([m for m, _ in out])
+    return mu, torch.stack([s for _, s in out]) if with_std else None
 
 
 def _r2_weights(net, params, x, y, vm, use_split, weight):
@@ -280,10 +325,14 @@ def predict_members(spec: SurrogateSpec, alphabet_size: int, state: SurrogateSta
     """Per-member predictions f32[C, M, B] of int[C, B, L] tokens ([M, B] for [B, L]).
 
     Mirrors `KerasModel._fitness_function` (predict + nan_to_num,
-    keras_model.py:69-79) for each member.
+    keras_model.py:69-79) for each member; for arch "gp", the posterior
+    mean, NaN where the fit's factorization failed (as in the JAX package).
     """
     cell_axis, (tokens,) = _cell_axis(torch.as_tensor(tokens))
     cells, members = state.weight.shape
+    if spec.arch == "gp":
+        out = _gp_posterior(state, tokens, alphabet_size, with_std=False)[0][:, None]
+        return out if cell_axis else out[0]
     x = one_hot(tokens, alphabet_size)
     if members > 1:
         x = x.repeat_interleave(members, dim=0)
@@ -312,8 +361,13 @@ def predict(spec: SurrogateSpec, alphabet_size: int, state: SurrogateState,
 def posterior(spec: SurrogateSpec, alphabet_size: int, state: SurrogateState, tokens):
     """(mean, std) over members, each f32[C, B] ([B] for [B, L] tokens).
 
-    The combined mean and the members' population std (the reference's
-    sigma proxy, bo.py:318-319; 0 for one member).
+    The exact posterior for arch "gp"; otherwise the combined mean and the
+    members' population std (the reference's sigma proxy, bo.py:318-319;
+    0 for one member).
     """
+    if spec.arch == "gp":
+        cell_axis, (tokens,) = _cell_axis(torch.as_tensor(tokens))
+        mu, std = _gp_posterior(state, tokens, alphabet_size, with_std=True)
+        return (mu, std) if cell_axis else (mu[0], std[0])
     members = predict_members(spec, alphabet_size, state, tokens)
     return _combine(members, state), members.std(dim=-2, unbiased=False)

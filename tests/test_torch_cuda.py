@@ -319,3 +319,66 @@ def test_gfp_oracle_on_card_within_1e4_of_cpu(card):
     on_card, on_cpu = (land.get_fitness(seqs) for land in lands)
     assert np.isfinite(on_card).all()
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+
+
+def _regression_data(length=20, rows=121, queries=200):
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, 4, (rows, length))
+    labels = (tokens == 1).sum(1) / length + 0.05 * rng.normal(size=rows)
+    mutants = tokens[rng.integers(0, rows, queries // 2)].copy()
+    mutants[np.arange(len(mutants)), rng.integers(0, length, len(mutants))] = rng.integers(
+        0, 4, len(mutants))
+    q = np.concatenate([rng.integers(0, 4, (queries - len(mutants), length)), mutants])
+    import flexs_tpu_torch as flexs
+
+    return flexs.Alphabet(flexs.RNAA).decode(tokens), labels, q
+
+
+@pytest.mark.parametrize("name,tolerance", [
+    ("TorchRidgeRegression", 1e-4), ("TorchLasso", 1e-4), ("TorchBayesianRidge", 1e-4),
+    ("TorchGaussianProcessRegressor", 2e-3), ("TorchKNNRegressor", 0.0),
+    ("TorchRandomForest", None), ("TorchGradientBoosting", None), ("TorchExtraTree", None),
+])
+def test_regressor_on_card_against_cpu(card, name, tolerance):
+    """chip_smoke.py phase 10a's tolerances: exact k-NN, 1e-4 linear, 2e-3 fitted GP,
+    trees by agreement when fitted and bitwise when carried across."""
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.baselines import models
+
+    seqs, labels, queries = _regression_data()
+    on_card, on_cpu = (getattr(models, name)(flexs.RNAA, device=d) for d in (card, "cpu"))
+    for m in (on_card, on_cpu):
+        m.train(seqs, labels)
+    got, want = on_card.fitness_from_tokens(queries), on_cpu.fitness_from_tokens(queries)
+    assert np.isfinite(got).all()
+    if tolerance is not None:
+        assert np.abs(got - want).max() <= tolerance
+        return
+    assert np.corrcoef(got, want)[0, 1] >= (0.9 if name == "TorchExtraTree" else 0.99)
+    on_card._state = tuple(t.to(card) for t in on_cpu._state)
+    assert np.array_equal(on_card.fitness_from_tokens(queries), want)
+
+
+def test_gp_surrogate_cells_on_card_equal_standalone_runs(card):
+    """Two GP cells in lockstep equal their two single runs, every field (the
+    batched-factorization trap: cells factorize one by one)."""
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.runtime import SurrogateSpec, jit_runner
+
+    reg = rna.registry()
+    land = rna.RNABinding(**reg["L14_RNA1"]["params"], device=card)
+    cfg = jit_runner.AdaleadConfig(rounds=3, sequences_batch_size=10, model_queries_per_batch=60,
+                                   alphabet_size=4, surrogate=SurrogateSpec(arch="gp"))
+    fn, params = land.device_fitness()
+    tokens = torch.as_tensor(flexs.Alphabet(flexs.RNAA).encode(
+        [reg["L14_RNA1"]["starts"][k] for k in (1, 2)]), device=card)
+
+    def gen(seed):
+        return torch.Generator(device=card).manual_seed(seed)
+
+    cells = jit_runner.run_adalead_nam_cells(
+        jit_runner.cell_axis_oracle(fn), params, tokens, cfg, [1.0] * 2, [gen(0), gen(1)])
+    for c in range(2):
+        single = jit_runner.run_adalead_nam(fn, params, tokens[c], cfg, 1.0, gen(c))
+        for field, got, want in zip(single._fields, cells, single):
+            assert torch.equal(got[c], want), (c, field)

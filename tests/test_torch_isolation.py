@@ -36,7 +36,10 @@ def test_port_sources_are_found():
                    "baselines/models/torch_model.py", "baselines/models/cnn.py",
                    "baselines/models/mlp.py", "baselines/models/global_epistasis_model.py",
                    "baselines/models/convert.py", "ops/rna_fold.py", "landscapes/bert_gfp.py",
-                   "profile_fold.py"):
+                   "profile_fold.py", "baselines/models/torch_linear.py",
+                   "baselines/models/torch_gp.py", "baselines/models/torch_trees.py",
+                   "baselines/models/sklearn_models.py",
+                   "baselines/models/adaptive_ensemble.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -67,4 +70,20 @@ def test_import_leaves_jax_unloaded():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_imports_without_sklearn():
+    """The machine with the card has no sklearn: only the sklearn wrappers' constructors need it."""
+    code = (
+        "import sys; sys.modules['sklearn'] = None; "
+        "import flexs_tpu_torch, flexs_tpu_torch.baselines.models as m; "
+        "m.AdaptiveEnsemble([m.TorchKNNRegressor('ACGU', device='cpu')]); "
+        "m.SklearnModel; "
+        "assert 'sklearn.linear_model' not in sys.modules\n"
+        "try:\n    m.LinearRegression('ACGU')\nexcept ImportError:\n    sys.exit(0)\n"
+        "sys.exit(1)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -149,9 +149,13 @@ def test_invalid_and_unported_modes_raise(landscape):
               starting_sequence=START, device="cpu")
     with pytest.raises(ValueError):
         DeviceAdaleadNAM(landscape, flexs.RNAA, model="bogus", **kw)
-    gp = flexs.runtime.surrogate.SurrogateSpec(arch="gp")  # needs jax_gp.py, not ported
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DeviceAdaleadNAM(landscape, flexs.RNAA, model="surrogate", surrogate_spec=gp, **kw)
+    with pytest.raises(ValueError, match="unknown surrogate arch"):
+        DeviceAdaleadNAM(landscape, flexs.RNAA, model="surrogate",
+                         surrogate_spec=flexs.runtime.surrogate.SurrogateSpec(arch="tree"), **kw)
+    # The exact GP (item 15's last arch) is ported: it no longer raises.
+    gp = flexs.runtime.surrogate.SurrogateSpec(arch="gp")
+    runner = DeviceAdaleadNAM(landscape, flexs.RNAA, model="surrogate", surrogate_spec=gp, **kw)
+    assert runner.model_name == "gaussian_process"
 
 
 def test_default_device_without_card_raises(landscape):

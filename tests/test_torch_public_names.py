@@ -19,17 +19,17 @@ SUBPACKAGES = (
 )
 
 # The port's name for a JAX name.
-RENAMED = {("baselines.models", "FlaxModel"): "TorchModel"}
+RENAMED = {
+    ("baselines.models", "FlaxModel"): "TorchModel",
+    **{("baselines.models", f"Jax{n}"): f"Torch{n}" for n in (
+        "RidgeRegression", "Lasso", "BayesianRidge", "GaussianProcessRegressor",
+        "KNNRegressor", "RandomForest", "GradientBoosting", "ExtraTree",
+    )},
+}
 
 # Names not ported yet -> ROADMAP.md item.
 NOT_PORTED = {
     ("", "rl"): 14,
-    **{("baselines.models", n): 13 for n in (
-        "AdaptiveEnsemble", "r2_weights", "JaxGaussianProcessRegressor", "JaxKNNRegressor",
-        "JaxExtraTree", "JaxGradientBoosting", "JaxRandomForest", "JaxBayesianRidge",
-        "JaxLasso", "JaxRidgeRegression", "LinearRegression", "LogisticRegression",
-        "RandomForest", "SklearnClassifier", "SklearnModel", "SklearnRegressor",
-    )},
     **{("baselines.explorers", n): 14 for n in (
         "BO", "GPR_BO", "environments", "VAE", "CbAS", "CMAES", "DQN", "DynaPPO",
         "DynaPPOEnsemble", "DynaPPOMutative", "GeneticAlgorithm", "PPO", "Random",
@@ -99,3 +99,13 @@ def test_repaired_names():
     assert models.KerasModel is models.TorchModel
     assert landscapes.bert_gfp.BertGFPBrightness is landscapes.BertGFPBrightness
     assert landscapes.rna.RNAFolding is landscapes.RNAFolding
+
+
+def test_item_13_names_are_ported():
+    from flexs_tpu_torch.baselines import models
+
+    assert not [key for key, item in NOT_PORTED.items() if item == 13]
+    for name in ("AdaptiveEnsemble", "r2_weights", "LinearRegression", "LogisticRegression",
+                 "RandomForest", "SklearnClassifier", "SklearnModel", "SklearnRegressor"):
+        assert hasattr(models, name), name
+    assert issubclass(models.LogisticRegression, models.SklearnRegressor)  # the reference's quirk

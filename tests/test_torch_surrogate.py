@@ -5,7 +5,8 @@ both packages on the same numpy-seeded inputs.  Tolerances: forward passes
 1e-5 (f32 sums in another order), gradients 1e-4 relative, one Adam step
 1e-7 (elementwise f32 arithmetic on the same inputs), the closed-form
 linear fit 2e-3 in its fitted values (an f64 eigh here, XLA's f32 eigh
-there).  Training draws from a torch generator, which cannot replay
+there), the exact GP 2e-3 when each package fits and 1e-6 from JAX's
+fitted state.  Training draws from a torch generator, which cannot replay
 `jax.random`, so a fit is held to what it must do, not to JAX's numbers.
 """
 import jax
@@ -306,13 +307,95 @@ def test_gem_keeps_the_reference_name_quirk():
 
 
 def test_gp_arch_raises():
+    """arch="gp" needs a capacity and one plain member; unknown archs raise."""
     spec = surrogate.SurrogateSpec(arch="gp")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        surrogate.init_state(spec, 4, L, torch.Generator(), capacity=64)
-    with pytest.raises(NotImplementedError, match="jax_gp"):
-        surrogate.check_spec(spec)
+    surrogate.check_spec(spec)
+    with pytest.raises(ValueError, match="capacity"):
+        surrogate.init_state(spec, 4, L, torch.Generator())
+    for bad in (spec._replace(ensemble_size=3), spec._replace(adaptive=True)):
+        with pytest.raises(ValueError, match="exact posterior"):
+            surrogate.init_state(bad, 4, L, torch.Generator(), capacity=64)
     with pytest.raises(ValueError, match="unknown surrogate arch"):
         surrogate.check_spec(surrogate.SurrogateSpec(arch="tree"))
+
+
+def _gp_buffer(seed=3, cap=64, n=40, duplicates=False):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, 4, size=(cap, L)).astype(np.int32)
+    y = rng.normal(size=cap).astype(np.float32)
+    if duplicates:
+        tokens[[5, 9]] = tokens[2]
+        y[[5, 9]] = y[2]
+    truth = np.where(np.arange(cap) < n, y, -np.inf).astype(np.float32)
+    return tokens, truth, n, rng.integers(0, 4, size=(16, L)).astype(np.int32)
+
+
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_gp_arch_equals_jax_posterior(duplicates):
+    """tests/test_surrogate_runner.py:109's case against JAX's arch="gp": the same
+    first-occurrence mask; the posterior within 2e-3 when each package fits
+    (JAX's own band between its two GP paths; the best point is picked among
+    f32 values flat to their last bits) and within 1e-6 from JAX's state."""
+    tokens, truth, n, query = _gp_buffer(duplicates=duplicates)
+    A = 4
+    jax_spec, spec = jax_surrogate.SurrogateSpec(arch="gp"), surrogate.SurrogateSpec(arch="gp")
+    jax_state = jax_surrogate.init_state(jax_spec, A, L, jax.random.PRNGKey(0), capacity=64)
+    jax_state = jax_surrogate.train(jax_spec, A, jax_state, jnp.asarray(tokens),
+                                    jnp.asarray(truth), n, jax.random.PRNGKey(1))
+    want_mu, want_std = (np.asarray(a) for a in jax_surrogate.posterior(
+        jax_spec, A, jax_state, jnp.asarray(query)))
+
+    gen = torch.Generator().manual_seed(0)
+    state = surrogate.init_state(spec, A, L, gen, capacity=64)
+    state = surrogate.train(spec, A, state, torch.as_tensor(tokens).long(), torch.as_tensor(truth),
+                            n, gen)
+    np.testing.assert_array_equal(state.nets.valid[0].numpy(),
+                                  np.asarray(jax_state.params["valid"]))
+    mu, std = surrogate.posterior(spec, A, state, torch.as_tensor(query).long())
+    assert float(std.min()) > 0
+    np.testing.assert_allclose(mu.numpy(), want_mu, atol=2e-3)
+    np.testing.assert_allclose(std.numpy(), want_std, atol=2e-3)
+    assert torch.equal(surrogate.predict(spec, A, state, torch.as_tensor(query).long()), mu)
+    assert torch.equal(surrogate.predict_members(spec, A, state, torch.as_tensor(query).long()),
+                       mu[None])
+
+    carried = surrogate_state_from_flax(spec, jax_state)
+    mu, std = surrogate.posterior(spec, A, carried, torch.as_tensor(query).long())
+    np.testing.assert_allclose(mu.numpy(), want_mu, atol=1e-6)
+    np.testing.assert_allclose(std.numpy(), want_std, atol=1e-6)
+
+
+def test_gp_arch_survives_duplicate_measured_rows():
+    """tests/test_surrogate_runner.py:475: duplicates do not NaN-poison the GP."""
+    tokens, truth, _, _ = _gp_buffer(seed=0, cap=32, n=16, duplicates=True)
+    spec = surrogate.SurrogateSpec(arch="gp", gp_opt_steps=10)
+    gen = torch.Generator()
+    state = surrogate.init_state(spec, 4, L, gen, capacity=32)
+    state = surrogate.train(spec, 4, state, torch.as_tensor(tokens).long(), torch.as_tensor(truth),
+                            16, gen)
+    assert state.nets.valid[0, :16].sum() == 14  # rows 5 and 9 repeat row 2
+    mu, std = surrogate.posterior(spec, 4, state, torch.as_tensor(tokens[:16]).long())
+    assert torch.isfinite(mu).all() and torch.isfinite(std).all()
+    np.testing.assert_allclose(mu.numpy()[2], truth[2], atol=0.1)
+
+
+def test_gp_cells_train_as_one_state_equal_alone():
+    """A 3-cell GP state fits and predicts as 3 one-cell states do, exactly."""
+    spec = surrogate.SurrogateSpec(arch="gp", gp_opt_steps=20)
+    bufs = [_gp_buffer(seed, n=30 + 5 * seed) for seed in range(3)]
+    gens = [torch.Generator() for _ in bufs]
+    joint = surrogate.init_state(spec, 4, L, gens, capacity=64)
+    joint = surrogate.train(spec, 4, joint, torch.stack([torch.as_tensor(b[0]).long() for b in bufs]),
+                            torch.stack([torch.as_tensor(b[1]) for b in bufs]),
+                            torch.tensor([b[2] for b in bufs]), gens)
+    queries = torch.stack([torch.as_tensor(b[3]).long() for b in bufs])
+    mu, std = surrogate.posterior(spec, 4, joint, queries)
+    for c, (tokens, truth, n, query) in enumerate(bufs):
+        alone = surrogate.init_state(spec, 4, L, torch.Generator(), capacity=64)
+        alone = surrogate.train(spec, 4, alone, torch.as_tensor(tokens).long(),
+                                torch.as_tensor(truth), n, torch.Generator())
+        m, s = surrogate.posterior(spec, 4, alone, torch.as_tensor(query).long())
+        assert torch.equal(mu[c], m) and torch.equal(std[c], s)
 
 
 def test_init_is_flax_lecun_normal():

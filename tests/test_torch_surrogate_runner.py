@@ -23,6 +23,7 @@ from flexs_tpu_torch.runtime.surrogate import SurrogateSpec
 from flexs_tpu_torch.utils import sequence_utils
 
 TINY = SurrogateSpec(num_filters=8, hidden_size=16, epochs=3, batch_size=64)
+GP = SurrogateSpec(arch="gp", gp_opt_steps=15)  # tests/test_surrogate_runner.py:157's
 DNA = flexs.DNAA
 
 
@@ -76,8 +77,8 @@ def test_device_adalead_surrogate(landscape):
 
 @pytest.mark.parametrize("spec", [
     TINY._replace(arch="gem"), TINY._replace(arch="mlp"), SurrogateSpec(arch="linear"),
-    TINY._replace(ensemble_size=2), TINY._replace(ensemble_size=2, adaptive=True),
-], ids=["gem", "mlp", "linear", "ensemble", "adaptive"])
+    TINY._replace(ensemble_size=2), TINY._replace(ensemble_size=2, adaptive=True), GP,
+], ids=["gem", "mlp", "linear", "ensemble", "adaptive", "gp"])
 def test_other_archs_and_ensembles_run_fused(landscape, spec):
     df, meta, cost = _run(landscape, spec, rounds=2)
     _check_invariants(df, landscape, cost, 8)
@@ -128,8 +129,8 @@ def test_default_spec_is_the_papers_cnn(landscape):
 
 @pytest.mark.parametrize("spec", [
     TINY, TINY._replace(ensemble_size=2), TINY._replace(arch="gem"), SurrogateSpec(arch="linear"),
-    TINY._replace(arch="mlp", ensemble_size=2, adaptive=True),
-], ids=["cnn", "ensemble", "gem", "linear", "adaptive"])
+    TINY._replace(arch="mlp", ensemble_size=2, adaptive=True), GP,
+], ids=["cnn", "ensemble", "gem", "linear", "adaptive", "gp"])
 def test_lockstep_cells_equal_single_runs(landscape, spec):
     """Three surrogate cells in lockstep equal three single runs, field for field."""
     cfg = jit_runner.AdaleadConfig(rounds=3, sequences_batch_size=8, model_queries_per_batch=40,
@@ -417,3 +418,27 @@ def test_generic_sweep_unported_options_raise(aav_pair, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         sweep.run_landscape_robustness_sweep(aav_pair, flexs.AAS, [aav_pair[0].wild_type], **kw,
                                              **SMALL)
+
+
+def test_gp_surrogate_sweep_cells_equal_standalone_runs():
+    """The GP surrogate through the generic sweep on RNABinding: "map" (the
+    "auto" default for a surrogate) equals "vmap", and cells equal their
+    standalone runs."""
+    reg = rna.registry()
+    land = rna.RNABinding(**reg["L14_RNA1"]["params"], device="cpu")
+    starts = [reg["L14_RNA1"]["starts"][k] for k in (1, 2, 3)]
+    kw = dict(signal_strengths=[1.0], seeds=[0], rounds=2, sequences_batch_size=5,
+              model_queries_per_batch=20, model="surrogate", surrogate_spec=GP, device="cpu")
+    df = sweep.run_landscape_robustness_sweep([land], flexs.RNAA, starts, **kw)
+    assert len(df) == 3 and (df["model_cost"] > 0).all()
+    pd.testing.assert_frame_equal(
+        df, sweep.run_landscape_robustness_sweep([land], flexs.RNAA, starts, cell_mode="vmap",
+                                                 **kw))
+    for i in (0, 2):
+        row = df.iloc[i]
+        single, meta, cost = _run(land, GP, flexs.RNAA, row["start"], rounds=2,
+                                  sequences_batch_size=5, model_queries_per_batch=20)
+        assert meta["model_name"] == "gaussian_process"
+        assert row["max_fitness"] == single["true_score"].max()
+        assert row["model_cost"] == single["model_cost"].iloc[-1]
+        assert row["landscape_cost"] == cost
