@@ -114,7 +114,32 @@ Phases (any failed check raises, and the script exits nonzero):
         fitness (a reading); its first cell equals the fused run of b and
         its last a standalone run; a 2-cell "vmap" chunk equals the map
         sweep's cells;
-  11. print the wall of each phase, one JSON line describing each kernel,
+  11. the host explorers (a launches no duplex build, nor do b and c;
+     d launches the main path's kernel through the oracle, and no row-cost
+     build may launch):
+     a. their components on the card against the CPU at 3MSI's width
+        (L = 66, 20 letters), rtol = atol: CMA-ES's tell at n = 1,320,
+        popsize 15, from init and across an eigenbasis refresh (1e-4); the
+        VAE (intermediate 250) decoder and log probability (1e-5), and its
+        CUDA-graph training steps equal to eager ones bitwise; the Q
+        network's all-action Q (1e-5) and a training call (1e-4); the
+        actor-critic (fc 128; 1e-5) and a PPO update (1e-4); the DynaPPO
+        density over 2,000 cached neighbours, bitwise;
+     b. the paper's 3MSI table row (scripts/run_paper_table.py:100-160):
+        random, genetic, bo, cmaes, cbas, dbas, dqn, ppo, dynappo and
+        dynappo_mutative over a perfect model of RosettaFolding 3msi (the
+        DynaPPOs over their default 11-member ensemble), 2 rounds x 100 x
+        2000 (dynappo_mutative 500 model queries a round), start ed_3_wt,
+        seed 0: run invariants, true_score == get_fitness; wall and top
+        beside the reference's 10-round mean (a reading); DynaPPO's act
+        calls and the device's idle share over a window of 2,000 of them;
+     c. GPR_BO Thompson over all 65,536 8-mers of SIX6_REF_R1 with an
+        identity ensemble of three CNN(8, 32, 100), 2 rounds x 100: model
+        cost grows by 65,536 a round;
+     d. BO over NAM 0.9 (3 rounds) and DynaPPO with its default members
+        (2 rounds) on L100_RNA1 from start 1: duplex launches and tops
+        pinned (34, 0.587749; 17, 0.579332);
+  12. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -209,6 +234,38 @@ TREES_MIN_CORR = {"random_forest": 0.99, "gradient_boosting": 0.99, "extra_trees
 # measurements) and top true_score, as its first run on an H100 gave them.
 GP_FUSED_LAUNCHES, GP_FUSED_TOP = 11, 0.717676
 GP_SWEEP_STARTS = (1, 2, 3)
+# Phase 11: the host explorers.  (a) Their components on the card against
+# the CPU at 3MSI's width (L = 66, 20 letters): CMA-ES over n = 1,320 with
+# popsize 15, the VAE (intermediate 250), the Q network, the actor-critic
+# (fc 128) and the DynaPPO density.
+# Each is rtol = atol (`np.allclose`): inference 1e-5, a training step and
+# CMA-ES's tell 1e-4.
+COMPONENT_TOLERANCE = 1e-5
+COMPONENT_TRAIN_TOLERANCE = CMAES_TOLERANCE = 1e-4
+# (b) The paper's 3MSI table row (scripts/run_paper_table.py:100-160) cut in
+# depth to 2 rounds; each top printed beside the reference's 10-round mean
+# (run_paper_table.py:19-43, a reading, not a gate).
+EXPLORER_RUN = dict(rounds=2, sequences_batch_size=100, model_queries_per_batch=2000)
+PAPER_EXPLORERS = ("random", "genetic", "bo", "cmaes", "cbas", "dbas", "dqn", "ppo", "dynappo",
+                   "dynappo_mutative")
+# DynaPPOMutative's model budget is cut from 2000 to 500 queries a round:
+# each query is a one-row walk step (an `act`, an ensemble query and a
+# density call, ~19 ms on an H100), 78 s for 2 rounds at 2000.
+PAPER_RUN_CUTS = {"dynappo_mutative": dict(model_queries_per_batch=500)}
+# DynaPPO's device busy share is read over a steady window of `act` calls
+# in round 1's model phase (calls 1,000-2,999 of 8,712 a round).
+DYNAPPO_PROFILED_ACTS = (1000, 2000)
+PAPER_REFERENCE_MEAN = {"random": 0.417, "genetic": 1.000, "bo": 0.996, "cmaes": 0.887,
+                        "cbas": 0.555, "dbas": 0.679, "dynappo": 0.934, "dqn": 0.934,
+                        "ppo": 0.934, "dynappo_mutative": 0.934}
+# (c) GPR_BO over all of TF-Bind-8, and (d) the kernel's path on L100_RNA1:
+# BO over NAM 0.9 for 3 rounds and DynaPPO with its 11 default members for
+# 2, each pinned (duplex launches, top true_score) from its first run on an
+# H100.
+GPR_BO_ROUNDS = 2
+L100_BO_ROUNDS, L100_DYNAPPO_ROUNDS = 3, 2
+L100_BO_LAUNCHES, L100_BO_TOP = 34, 0.587749
+L100_DYNAPPO_LAUNCHES, L100_DYNAPPO_TOP = 17, 0.579332
 
 
 def card_line() -> str:
@@ -946,40 +1003,19 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
             "step_walls_s": walls}
 
 
-def _mutants(rng, tokens, n: int) -> np.ndarray:
+def _mutants(rng, tokens, n: int, letters: int = 4) -> np.ndarray:
     """n copies of random rows of `tokens`, each with 1-3 random positions redrawn."""
     out = tokens[rng.integers(0, len(tokens), n)].copy()
     for row in out:
         pos = rng.choice(out.shape[1], rng.integers(1, 4), replace=False)
-        row[pos] = rng.integers(0, 4, len(pos))
+        row[pos] = rng.integers(0, letters, len(pos))
     return out
-
-
-def default_members(flexs, seq_len: int, alphabet: str, device=None) -> list:
-    """The port's counterparts of the JAX package's 11 DynaPPO default members.
-
-    `tpu_native_default_models` (flexs_tpu/baselines/explorers/dyna_ppo.py:55-82),
-    at its widths and defaults.
-    """
-    m = flexs.baselines.models
-    dev = {} if device is None else {"device": device}
-    return [
-        m.GlobalEpistasisModel(seq_len, 100, alphabet, **dev),
-        m.MLP(seq_len, 200, alphabet, **dev),
-        m.CNN(seq_len, 32, 100, alphabet, **dev),
-        m.TorchRidgeRegression(alphabet, alpha=0.0, name="linear_regression", **dev),
-        m.TorchRandomForest(alphabet, **dev),
-        m.TorchKNNRegressor(alphabet, **dev),
-        m.TorchLasso(alphabet, **dev),
-        m.TorchBayesianRidge(alphabet, **dev),
-        m.TorchGaussianProcessRegressor(alphabet, **dev),
-        m.TorchGradientBoosting(alphabet, **dev),
-        m.TorchExtraTree(alphabet, **dev),
-    ]
 
 
 def regressors_card_vs_cpu(flexs, land, card: str) -> dict:
     """Phase 10a: each regressor fitted and queried on the card and on the CPU."""
+    from flexs_tpu_torch.baselines.explorers.dyna_ppo import tpu_native_default_models
+
     rng = np.random.default_rng(SEED)
     alphabet = flexs.Alphabet(flexs.RNAA)
     length = land.seq_length
@@ -992,7 +1028,7 @@ def regressors_card_vs_cpu(flexs, land, card: str) -> dict:
              "nearest_neighbors", "random_forest", "gradient_boosting", "extra_trees")
     members = {}
     for dev in ("cuda", "cpu"):
-        built = [m for m in default_members(flexs, length, flexs.RNAA, dev)
+        built = [m for m in tpu_native_default_models(length, flexs.RNAA, dev)
                  if m.name in names]
         members[dev] = {m.name: m for m in built}
     readings = {}
@@ -1040,6 +1076,7 @@ def model_phases(flexs, cuda_duplex, card: str) -> dict:
     import pandas as pd
     from torch.profiler import ProfilerActivity, profile
 
+    from flexs_tpu_torch.baselines.explorers.dyna_ppo import tpu_native_default_models
     from flexs_tpu_torch.landscapes import rna
     from flexs_tpu_torch.parallel import run_landscape_robustness_sweep
     from flexs_tpu_torch.profile_main_path import device_kernels
@@ -1110,7 +1147,7 @@ def model_phases(flexs, cuda_duplex, card: str) -> dict:
     # c. The host run: Adalead over an AdaptiveEnsemble of the 11 default members.
     steps.append(("c host", time.perf_counter()))
     host_land = rna.RNABinding(**reg["L100_RNA1"]["params"])
-    members = default_members(flexs, len(starts[0]), flexs.RNAA)
+    members = tpu_native_default_models(len(starts[0]), flexs.RNAA)
     train_s = {}
 
     def timed_train(member):
@@ -1175,6 +1212,330 @@ def model_phases(flexs, cuda_duplex, card: str) -> dict:
     print(f"phase 10 step walls (s): {json.dumps(walls)}")
     return {"regressors": regressors, "fused": fused_reading, "host": host_reading,
             "sweep": sweep_reading, "step_walls_s": walls}
+
+
+def _carry(t):
+    """A tensor, or a tuple/state of tensors, copied to the card."""
+    if isinstance(t, torch.Tensor):
+        return t.cuda()
+    if hasattr(t, "_fields"):
+        return type(t)(*(_carry(x) for x in t))
+    return t
+
+
+def close(name: str, card_value, cpu_value, tolerance: float) -> float:
+    """max |card - cpu| of two arrays or tensors.
+
+    Raises unless both are finite, of one shape, and |card - cpu| <=
+    tolerance * (1 + |cpu|) everywhere (`np.allclose` with rtol = atol =
+    tolerance, as the CPU tests hold the port to the JAX package).
+    """
+    a = card_value.detach().cpu().numpy() if hasattr(card_value, "detach") else card_value
+    b = cpu_value.detach().cpu().numpy() if hasattr(cpu_value, "detach") else cpu_value
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape and np.isfinite(a).all(), (name, a.shape, b.shape)
+    diff = float(np.abs(a - b).max())
+    assert np.allclose(a, b, rtol=tolerance, atol=tolerance), (
+        f"{name}: card vs CPU max |diff| {diff} beyond rtol = atol = {tolerance}")
+    return diff
+
+
+def explorer_components_card_vs_cpu(flexs, card: str) -> dict:
+    """Phase 11a: the explorers' components on the card against the CPU at 3MSI's width."""
+    from flexs_tpu_torch.baselines.explorers.environments.dyna_ppo import DynaPPOEnvironment
+    from flexs_tpu_torch.landscapes import rosetta
+    from flexs_tpu_torch.ops import cmaes
+    from flexs_tpu_torch.rl import PPOAgent
+    from flexs_tpu_torch.utils.vae import VAE
+
+    rng = np.random.default_rng(SEED)
+    alphabet = flexs.Alphabet(flexs.AAS)
+    start = list(rosetta.registry()["3msi"]["starts"].values())[0]
+    length, letters = len(start), len(alphabet)
+    dim = length * letters
+    diffs = {}
+
+    # CMA-ES: a tell from init, then one that refreshes the eigenbasis.
+    popsize = 15
+    gap = cmaes.lazy_gap(dim, popsize)
+    state = cmaes.init(rng.normal(size=dim).astype(np.float32), 0.45, device="cpu")
+    for k, count in enumerate((0, gap - 1)):
+        state = state._replace(count=count)
+        sols = rng.normal(size=(popsize, dim)).astype(np.float32)
+        fits = rng.random(popsize).astype(np.float32)
+        on_card = cmaes.tell_numpy(_carry(state), sols, fits)
+        state = cmaes.tell_numpy(state, sols, fits)
+        for name in ("mean", "sigma", "cov"):
+            diffs[f"cmaes_tell{k}_{name}"] = close(
+                name, getattr(on_card, name), getattr(state, name), CMAES_TOLERANCE)
+        diffs[f"cmaes_tell{k}_basis"] = close("basis", cmaes.covariance(on_card),
+                                              cmaes.covariance(state), CMAES_TOLERANCE)
+
+    # The VAE: trained one epoch on the CPU, its weights carried to the card.
+    seqs = alphabet.decode(rng.integers(0, letters, (120, length)))
+    vae_cpu = VAE(length, flexs.AAS, intermediate_dim=250, epochs=1, verbose=False, seed=0,
+                  device="cpu")
+    vae_cpu.train_model(seqs, np.ones(len(seqs)))
+    vae_card = VAE(length, flexs.AAS, intermediate_dim=250, verbose=False, seed=0)
+    vae_card.set_weights({k: v.cuda() for k, v in vae_cpu.get_weights().items()})
+    z = rng.standard_normal((16, 2)).astype(np.float32)
+    diffs["vae_decode"] = close("decode", vae_card.decode_numpy(z), vae_cpu.decode_numpy(z),
+                                COMPONENT_TOLERANCE)
+    diffs["vae_log_probability"] = close(
+        "log probability", vae_card.calculate_log_probability(seqs[:64]),
+        vae_cpu.calculate_log_probability(seqs[:64]), COMPONENT_TOLERANCE)
+    # Training on the card: CUDA-graph steps equal eager ones bitwise.
+    graphed, eager = (VAE(length, flexs.AAS, intermediate_dim=250, epochs=2, verbose=False,
+                          seed=0) for _ in range(2))
+    eager.cuda_graph = False
+    for vae in (graphed, eager):
+        vae.train_model(seqs, np.linspace(0.5, 1.0, len(seqs)))
+    for (name, a), b in zip(graphed.get_weights().items(), eager.get_weights().values()):
+        assert torch.equal(a, b), f"VAE {name}: graphed training differs from eager"
+    diffs["vae_graphed_vs_eager_training"] = 0.0
+
+    # The Q network: all-action Q, then one training call on the same batches.
+    dqns = {}
+    for dev in ("cpu", "cuda"):
+        dqns[dev] = flexs.baselines.explorers.DQN(
+            None, rounds=1, sequences_batch_size=16, model_queries_per_batch=16,
+            starting_sequence=start, alphabet=flexs.AAS, train_epochs=5, seed=0, device=dev)
+        dqns[dev].initialize_data_structures()
+    dqns["cuda"].q_network.load_state_dict(dqns["cpu"].q_network.state_dict())
+    eye = np.eye(letters, dtype=np.float32)
+    states = eye[rng.integers(0, letters, (4, length))].reshape(4, -1)
+    diffs["dqn_all_action_q"] = close("all-action Q", dqns["cuda"].all_action_q(states),
+                                      dqns["cpu"].all_action_q(states), COMPONENT_TOLERANCE)
+    obs = eye[rng.integers(0, letters, (5, 16, length))].reshape(5, 16, -1)
+    nxt = eye[rng.integers(0, letters, (5, 16, length))].reshape(5, 16, -1)
+    batch = (obs, nxt * (1 - obs), rng.random((5, 16)).astype(np.float32), nxt)
+    for dqn in dqns.values():
+        dqn._train(*(torch.as_tensor(a, device=dqn.device) for a in batch))
+    diffs["dqn_train"] = close(
+        "Q network after training", torch.nn.utils.parameters_to_vector(
+            dqns["cuda"].q_network.parameters()),
+        torch.nn.utils.parameters_to_vector(dqns["cpu"].q_network.parameters()),
+        COMPONENT_TRAIN_TOLERANCE)
+
+    # The actor-critic of DynaPPO at 3MSI: obs 66 x 21, 20 actions.
+    obs_dim = length * (letters + 1)
+    agents = {dev: PPOAgent(obs_dim, letters, seed=0, device=dev) for dev in ("cpu", "cuda")}
+    agents["cuda"].net.load_state_dict(agents["cpu"].net.state_dict())
+    x = rng.random((64, obs_dim)).astype(np.float32)
+    with torch.no_grad():
+        (lc, vc), (lg, vg) = agents["cpu"].net(torch.tensor(x)), agents["cuda"].net(
+            torch.tensor(x).cuda())
+    diffs["actor_critic_logits"] = close("logits", lg, lc, COMPONENT_TOLERANCE)
+    diffs["actor_critic_values"] = close("values", vg, vc, COMPONENT_TOLERANCE)
+    t = length * 16
+    ppo_batch = {
+        "obs": rng.random((t, obs_dim)).astype(np.float32),
+        "actions": rng.integers(0, letters, t), "logprobs": np.full(t, -np.log(letters)),
+        "rewards": rng.random(t), "dones": np.arange(t) % length == length - 1,
+        "values": rng.random(t), "masks": rng.random((t, letters)) < 0.9,
+    }
+    ppo_batch["masks"][np.arange(t), ppo_batch["actions"]] = True
+    losses = [agents[dev].train(ppo_batch) for dev in ("cuda", "cpu")]
+    diffs["ppo_train_loss"] = close("PPO loss", np.array(losses[:1]), np.array(losses[1:]),
+                                    COMPONENT_TRAIN_TOLERANCE)
+    diffs["ppo_train"] = close(
+        "actor-critic after training",
+        torch.nn.utils.parameters_to_vector(agents["cuda"].net.parameters()),
+        torch.nn.utils.parameters_to_vector(agents["cpu"].net.parameters()),
+        COMPONENT_TRAIN_TOLERANCE)
+
+    # The DynaPPO density: 2,000 cached neighbours of the start, 16 queries.
+    base = alphabet.encode_one(start)
+    cache = _mutants(rng, base[None], 2000, letters)
+    queries = alphabet.decode(_mutants(rng, base[None], 16, letters))
+    fitness = rng.random(len(cache))
+    densities = {}
+    for dev in ("cpu", "cuda"):
+        env = DynaPPOEnvironment(flexs.AAS, length, None, None, 16, device=dev)
+        env._density.update(alphabet.decode(cache), fitness)
+        densities[dev] = env._density.densities(queries)
+    assert np.array_equal(densities["cuda"], densities["cpu"]), "densities differ"
+    assert (densities["cpu"] > 0).any()
+    diffs["dynappo_density"] = 0.0
+    print(f"explorer components card vs CPU (3MSI width: n = {dim} for CMA-ES, VAE 250, "
+          f"fc 128): {json.dumps(diffs)}; the density bitwise [{card}]")
+    return diffs
+
+
+def paper_explorer(flexs, name: str, model, landscape, start: str, alphabet: str, **run):
+    """The explorer `name` at scripts/run_paper_table.py:100-160's settings, seed 0."""
+    from flexs_tpu_torch.utils.vae import VAE
+
+    ex = flexs.baselines.explorers
+    common = dict(starting_sequence=start, alphabet=alphabet, **run)
+    if name == "random":
+        return ex.Random(model, seed=0, **common)
+    if name == "genetic":
+        return ex.GeneticAlgorithm(model, population_size=100,
+                                   parent_selection_strategy="wright-fisher",
+                                   children_proportion=0.2, beta=0.05, seed=0, **common)
+    if name == "bo":
+        return ex.BO(model, seed=0, **common)
+    if name == "cmaes":
+        return ex.CMAES(model, population_size=15, seed=0, maximize=True, **common)
+    if name in ("cbas", "dbas"):
+        vae = VAE(seq_length=len(start), alphabet=alphabet, intermediate_dim=250, epochs=10,
+                  verbose=False, seed=0)
+        return ex.CbAS(model, vae, algo=name, seed=0, **common)
+    if name == "dqn":
+        return ex.DQN(model, seed=0, **common)
+    if name == "ppo":
+        return ex.PPO(model, seed=0, **common)
+    if name == "dynappo":
+        return ex.DynaPPO(landscape, env_batch_size=16, seed=0, **common)
+    if name == "dynappo_mutative":
+        return ex.DynaPPOMutative(landscape, seed=0, **common)
+    raise ValueError(name)
+
+
+def check_explorer_frame(df, landscape, rounds: int, batch: int, start: str) -> None:
+    """A host explorer's frame: its rounds, row counts, costs, and true scores from the oracle."""
+    cols = ["sequence", "model_score", "true_score", "round", "model_cost",
+            "measurement_cost"]
+    assert list(df.columns) == cols, list(df.columns)
+    assert df["round"].max() == rounds
+    r0 = df[df["round"] == 0]
+    assert len(r0) == 1 and r0["sequence"].iloc[0] == start
+    for r in range(1, rounds + 1):
+        assert 0 < len(df[df["round"] == r]) <= batch, r
+    for col in ("model_cost", "measurement_cost"):
+        assert df.groupby("round")[col].first().is_monotonic_increasing, col
+    assert df["measurement_cost"].iloc[-1] == len(df)
+    truth = landscape.get_fitness(df["sequence"].tolist())
+    diff = float(np.abs(df["true_score"].to_numpy() - truth).max())
+    assert diff <= 1e-6, diff
+
+
+def host_run(explorer, landscape, rounds: int, start: str):
+    """(frame, wall s, top) of one explorer run, its frame checked."""
+    (df, _), wall = timed(lambda: explorer.run(landscape, verbose=False))
+    check_explorer_frame(df, landscape, rounds, EXPLORER_RUN["sequences_batch_size"], start)
+    return df, wall, float(df["true_score"].max())
+
+
+def profile_acts(agent, first: int, count: int) -> dict:
+    """Count `agent.act`'s calls, and profile the card over calls first .. first + count - 1.
+
+    The returned dict holds "calls", and once the window has closed the
+    finished profiler ("prof") and the window's wall ("wall_s").
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    window = {"calls": 0}
+    original = agent.act
+
+    def act(*args, **kwargs):
+        if window["calls"] == first:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        out = original(*args, **kwargs)  # numpy arrays: the call has synchronized
+        window["calls"] += 1
+        if window["calls"] == first + count:
+            window["wall_s"] = time.perf_counter() - window["t0"]
+            window["prof"].stop()
+        return out
+    agent.act = act
+    return window
+
+
+def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 11 (a-d): the host explorers on the card."""
+    from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
+    from flexs_tpu_torch.profile_main_path import device_kernels
+
+    steps = [("a components", time.perf_counter())]
+    cuda_duplex.reset_launch_counts()
+    components = explorer_components_card_vs_cpu(flexs, card)
+
+    # b. The paper's 3MSI row: a perfect model of the landscape (DynaPPO's
+    # two run on the landscape with their default 11-member ensemble).
+    problem = rosetta.registry()["3msi"]
+    start = list(problem["starts"].values())[0]
+    rounds = EXPLORER_RUN["rounds"]
+    paper = {}
+    for name in PAPER_EXPLORERS:
+        steps.append((f"b {name}", time.perf_counter()))
+        land = rosetta.RosettaFolding(**problem["params"])
+        model = flexs.LandscapeAsModel(land)
+        run = {**EXPLORER_RUN, **PAPER_RUN_CUTS.get(name, {})}
+        explorer = paper_explorer(flexs, name, model, land, start, flexs.AAS, **run)
+        reading = {}
+        if name == "dynappo":
+            # Its cost is host round trips: count the agent's act calls and
+            # read the device's busy share over a steady window of them.
+            window = profile_acts(explorer.agent, *DYNAPPO_PROFILED_ACTS)
+            df, wall, top = host_run(explorer, land, rounds, start)
+            kernels = device_kernels(window["prof"])
+            device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+            reading.update(act_calls=window["calls"], profiled_acts=DYNAPPO_PROFILED_ACTS,
+                           window_wall_s=window["wall_s"], window_device_kernel_s=device_s,
+                           window_device_idle_share=1 - device_s / window["wall_s"],
+                           window_kernel_launches=sum(e.count for e in kernels))
+        else:
+            df, wall, top = host_run(explorer, land, rounds, start)
+        reading.update(wall_s=wall, top=top, rows=len(df),
+                       model_cost=int(df["model_cost"].iloc[-1]),
+                       reference_10_round_mean=PAPER_REFERENCE_MEAN[name])
+        paper[name] = reading
+        print(f"3msi {name} ({rounds} rounds, start {start[:8]}..): "
+              f"{json.dumps(reading)} [{card}]")
+    no_duplex_launches(cuda_duplex, "11a-b")
+
+    # c. GPR_BO Thompson over all 65,536 8-mers of SIX6_REF_R1.
+    steps.append(("c gpr_bo", time.perf_counter()))
+    tf_problem = tf_binding.registry()["SIX6_REF_R1"]
+    tf_land = tf_binding.TFBinding(**tf_problem["params"])
+    cnns = [flexs.baselines.models.CNN(8, 32, 100, flexs.DNAA, seed=s) for s in range(3)]
+    ensemble = flexs.Ensemble(cnns, combine_with=lambda x: x)
+    gpr = flexs.baselines.explorers.GPR_BO(
+        ensemble, **{**EXPLORER_RUN, "rounds": GPR_BO_ROUNDS},
+        starting_sequence=tf_problem["starts"][0], alphabet=flexs.DNAA,
+        seq_proposal_method="Thompson", seed=0)
+    cuda_duplex.reset_launch_counts()
+    df_gpr, gpr_wall, gpr_top = host_run(gpr, tf_land, GPR_BO_ROUNDS, tf_problem["starts"][0])
+    no_duplex_launches(cuda_duplex, "11c")
+    costs = df_gpr.groupby("round")["model_cost"].first().to_numpy()
+    assert (np.diff(costs) == 4**8).all(), costs
+    gpr_reading = {"wall_s": gpr_wall, "top": gpr_top, "rows": len(df_gpr),
+                   "model_cost_per_round": 4**8}
+    print(f"gpr_bo Thompson (SIX6_REF_R1, {GPR_BO_ROUNDS} rounds, 3 CNNs): "
+          f"{json.dumps(gpr_reading)} [{card}]")
+
+    # d. The kernel's path: BO over NAM and DynaPPO on L100_RNA1 from start 1.
+    reg = rna.registry()
+    l100_start = reg["L100_RNA1"]["starts"][1]
+    l100 = {}
+    for name, n_rounds, pins in (("bo", L100_BO_ROUNDS, (L100_BO_LAUNCHES, L100_BO_TOP)),
+                                 ("dynappo", L100_DYNAPPO_ROUNDS,
+                                  (L100_DYNAPPO_LAUNCHES, L100_DYNAPPO_TOP))):
+        steps.append((f"d {name}", time.perf_counter()))
+        land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+        model = flexs.baselines.models.NoisyAbstractModel(land, 0.9, seed=0)
+        run = {**EXPLORER_RUN, "rounds": n_rounds}
+        explorer = paper_explorer(flexs, name, model, land, l100_start, flexs.RNAA, **run)
+        cuda_duplex.reset_launch_counts()
+        (df, _), wall = timed(lambda: explorer.run(land, verbose=False))
+        launches = path_launches(cuda_duplex, f"L100_RNA1 {name}")
+        check_explorer_frame(df, land, n_rounds, EXPLORER_RUN["sequences_batch_size"], l100_start)
+        top = float(df["true_score"].max())
+        reading = {"wall_s": wall, "top": top, "rows": len(df), "duplex_launches": launches}
+        l100[name] = reading
+        print(f"L100_RNA1 {name} ({n_rounds} rounds, start 1): {json.dumps(reading)} "
+              f"[{card}]")
+        assert launches == pins[0], (name, launches)
+        assert round(top, 6) == pins[1], (name, top)
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 11 step walls (s): {json.dumps(walls)}")
+    return {"components": components, "paper_3msi": paper, "gpr_bo": gpr_reading,
+            "l100": l100, "step_walls_s": walls}
 
 
 def clock_line() -> str:
@@ -1398,12 +1759,17 @@ def main() -> int:
     model_readings = model_phases(flexs, cuda_duplex, card)
     print(f"model readings: {json.dumps(model_readings)}")
 
+    stamps.append(("11 explorers", time.perf_counter()))
+    # 11. The host explorers, their components and the kernel's path through them.
+    explorer_readings = explorer_phases(flexs, cuda_duplex, card)
+    print(f"explorer readings: {json.dumps(explorer_readings)}")
+
     # Wall of each phase, so the script's time can be kept near 700 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 11. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 12. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -1415,6 +1781,8 @@ def main() -> int:
         "rna_generic_sweep_launches": surrogate_readings["rna_generic_sweep"]["duplex_launches"],
         "gp_fused_launches": model_readings["fused"]["duplex_launches"],
         "gp_host_launches": model_readings["host"]["duplex_launches"],
+        "l100_bo_launches": explorer_readings["l100"]["bo"]["duplex_launches"],
+        "l100_dynappo_launches": explorer_readings["l100"]["dynappo"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

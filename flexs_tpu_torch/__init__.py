@@ -26,4 +26,4 @@ from flexs_tpu_torch.ensemble import Ensemble  # noqa: F401
 from flexs_tpu_torch.explorer import Explorer  # noqa: F401
 
 from flexs_tpu_torch import baselines, evaluate, landscapes, utils  # noqa: F401
-from flexs_tpu_torch import ops, parallel, runtime  # noqa: F401
+from flexs_tpu_torch import ops, parallel, rl, runtime  # noqa: F401

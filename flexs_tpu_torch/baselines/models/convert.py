@@ -10,7 +10,11 @@ torch's `Linear` layout, so its kernels are transposed
 (`bert_params_from_flax`).  The fitted state of the linear, GP, k-NN
 and tree models maps array for array (`linear_state_from_jax`,
 `gp_state_from_jax`, `knn_state_from_jax`, `trees_from_jax`), so that
-both packages' predict paths run on identical state.
+both packages' predict paths run on identical state.  The explorers' nets
+(the VAE, the DQN's Q network, the PPO actor-critic) keep Flax's layer
+names with torch's `Linear` layout: their state dicts come from the Flax
+variables with every Dense kernel transposed (`vae_variables_from_flax`,
+`qnetwork_variables_from_flax`, `actor_critic_params_from_flax`).
 """
 from typing import Mapping
 
@@ -172,3 +176,44 @@ def trees_from_jax(feats, leaves, init=None, device="cpu"):
     if init is None:
         return state
     return (_tensor(init, torch.float32, device),) + state
+
+
+def _state_dict_from_flax(variables: Mapping) -> dict:
+    """A state dict (CPU) of Flax variables `{"params": ..., "batch_stats": ...}`.
+
+    Each layer's "kernel" [in, out] becomes "<layer>.weight" [out, in];
+    every other leaf (bias, BatchNorm scale, mean, var) keeps its name.
+    """
+    params = variables["params"] if "params" in variables else variables
+    out = {}
+    for group in (params, variables.get("batch_stats", {})):
+        for layer, leaves in group.items():
+            for leaf, value in leaves.items():
+                a = np.asarray(value, np.float32)
+                if leaf == "kernel":
+                    out[f"{layer}.weight"] = torch.tensor(a.T.copy())
+                else:
+                    out[f"{layer}.{leaf}"] = torch.tensor(a)
+    return out
+
+
+def vae_variables_from_flax(variables: Mapping) -> dict:
+    """A `utils.vae.VAEModule` state dict of the JAX VAE's `variables` (params, batch_stats).
+
+    Load it with `VAE.set_weights`, or pass it as a `calculate_log_probability` snapshot.
+    """
+    return _state_dict_from_flax(variables)
+
+
+def qnetwork_variables_from_flax(variables: Mapping) -> dict:
+    """A DQN `QNetwork` state dict of the JAX Q network's `variables`.
+
+    The BatchNorm statistics (`batch_stats`) are parameters of the port's
+    net, as the JAX package's optimizer treats them.
+    """
+    return _state_dict_from_flax(variables)
+
+
+def actor_critic_params_from_flax(params: Mapping) -> dict:
+    """A `rl.ppo.ActorCritic` state dict of the JAX agent's `params`."""
+    return _state_dict_from_flax(params)

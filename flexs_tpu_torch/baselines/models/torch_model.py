@@ -238,6 +238,95 @@ def adam_step(state: AdamState, grads: torch.Tensor, lr: float,
     ))
 
 
+@torch.no_grad()
+def adam_step_(state: AdamState, grads: torch.Tensor, lr: float) -> None:
+    """`adam_step` written into `state`'s own tensors.
+
+    The weights may be the [1, P] view of a module's flat parameters
+    (`flatten_parameters`), so the module sees the step at once; every
+    tensor keeps its storage, as a CUDA graph replaying the step needs.
+    """
+    for old, new in zip(state, adam_step(state, grads, lr)):
+        old.copy_(new)
+
+
+# -- Single nets in torch's layout (the explorers' VAE, Q network, actor-critic).
+
+
+def linear(in_features: int, out_features: int, generator: torch.Generator) -> nn.Linear:
+    """An `nn.Linear` (weight [out, in]) with Flax `nn.Dense`'s init, drawn from `generator`.
+
+    The weight is lecun-normal with fan-in `in_features`, the bias zero; the
+    layer lives on the generator's device, and the global RNG is not drawn.
+    """
+    layer = nn.utils.skip_init(nn.Linear, in_features, out_features, device=generator.device)
+    with torch.no_grad():
+        lecun_normal_(layer.weight, in_features, generator)
+        layer.bias.zero_()
+    return layer
+
+
+class BatchNorm(nn.Module):
+    """Flax `nn.BatchNorm` over [..., features]: scale, bias and the statistics mean, var.
+
+    Normalizes as Flax does, (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    In training mode it uses the batch's mean and biased variance
+    (E[x^2] - E[x]^2, floored at 0) and moves the statistics to
+    momentum * stat + (1 - momentum) * batch stat (Flax's momentum 0.99 is
+    torch's 0.01; torch would use the unbiased variance).  With
+    `trainable_stats` the statistics are parameters, not buffers.
+    """
+
+    def __init__(self, features: int, device=None, momentum: float = 0.99, eps: float = 1e-5,
+                 trainable_stats: bool = False):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        stats = {"mean": torch.zeros(features, device=device),
+                 "var": torch.ones(features, device=device)}
+        for name, value in stats.items():
+            if trainable_stats:
+                setattr(self, name, nn.Parameter(value))
+            else:
+                self.register_buffer(name, value)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp(torch.square(x).mean(dim=axes) - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def flatten_parameters(module: nn.Module) -> torch.Tensor:
+    """Make every parameter of `module` a view of one flat f32[P] tensor, and return it.
+
+    The optimizers then update the whole net with a few elementwise ops on
+    the flat tensor (`adam_step` on its [1, P] view), and the module sees
+    the new weights at once; `load_state_dict` writes through the views.
+    """
+    params = list(module.parameters())
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    offset = 0
+    for p in params:
+        p.data = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return flat
+
+
+def flat_grad(loss: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    """d loss / d parameters of `module`, flattened in `flatten_parameters`' order."""
+    grads = torch.autograd.grad(loss, list(module.parameters()))
+    return torch.cat([g.reshape(-1) for g in grads])
+
+
 def minibatch_step(module: nn.Module, state: AdamState, xb, yb, wb, lr: float,
                    loss: Callable = mse_loss, skip_empty: bool = False,
                    dropout_mask: Optional[torch.Tensor] = None):

@@ -9,6 +9,7 @@ fast path is `ops.packed_hamming`.
 """
 import numpy as np
 import torch
+from torch import nn
 
 
 def hamming_distance_matrix(queries, cache, alphabet_size: int) -> torch.Tensor:
@@ -64,9 +65,12 @@ def banded_edit_distance_matrix(queries, cache, band: int = 2) -> torch.Tensor:
 
     Ukkonen-style banded Wagner-Fischer over all pairs at once: only the
     2 * band + 1 diagonals |i - j| <= band are tracked, so each of the L
-    steps is O(band) [B, N] tensor ops; any true distance > band reports
-    exactly band + 1.  Positions with value < 0 are padding at the end of a
-    row.  The step follows the JAX package's `_banded_edit_distance_pairwise`.
+    steps is a few [B, N, 2 * band + 1] tensor ops; any true distance >
+    band reports exactly band + 1.  Positions with value < 0 are padding at
+    the end of a row.  The step follows the JAX package's
+    `_banded_edit_distance_pairwise`, with the in-row recurrence
+    v[d] = min(cand[d], v[d - 1] + 1) taken as one running minimum:
+    v[d] = d + cummin(cand[d'] - d').
     """
     a = torch.as_tensor(queries).long()
     b = torch.as_tensor(cache).long().to(a.device)
@@ -77,35 +81,34 @@ def banded_edit_distance_matrix(queries, cache, band: int = 2) -> torch.Tensor:
     la = (a >= 0).sum(dim=1)[:, None, None]  # [B, 1, 1]
     lb = (b >= 0).sum(dim=1)[None, :, None]  # [1, N, 1]
     offs = torch.arange(K, device=dev) - band  # column offset j - r
+    steps = torch.arange(K, device=dev)
+
+    # Every row's window columns j = r + offs, and what depends on them
+    # alone: b's letters there, and the cells left of column 0, at it, and
+    # past b's true length.
+    cols = torch.arange(1, L + 1, device=dev)[:, None] + offs  # [L, K]
+    inside = (cols >= 1) & (cols <= L)
+    bj = torch.where(inside[None], b[:, (cols - 1).clamp(0, L - 1)], -2)  # [N, L, K]
+    bj = bj.transpose(0, 1).contiguous()  # [L, N, K]
+    before_start, at_start = cols < 0, cols == 0
+    past_end = cols[None] > lb[0, :, :, None]  # [N, L, K]
+    in_a = torch.arange(1, L + 1, device=dev)[:, None, None, None] <= la  # [L, B, 1, 1]
 
     # Row 0: dp[0][j] = j for j in 0..band; columns off-band are saturated.
     w = torch.where(offs >= 0, offs, inf).clamp(max=inf)
     w = w.expand(a.shape[0], b.shape[0], K)
     for r in range(1, L + 1):
         # w[..., d] = dp[r-1][r-1 + offs[d]]; compute row r (a-prefix r).
-        j = r + offs
-        achar = a[:, r - 1][:, None, None]
-        inside = (j >= 1) & (j <= L)
-        bj = torch.where(inside[None, :], b[:, (j - 1).clamp(0, L - 1)], -2)  # [N, K]
-        cost = (achar != bj[None]).long()
         # dp[r-1][j] sits one offset up in the previous window; dp[r-1][j-1]
         # sits at the same offset.
-        up = torch.cat([w[..., 1:], torch.full_like(w[..., :1], inf)], dim=-1)
+        up = nn.functional.pad(w[..., 1:], (0, 1), value=inf)
+        cost = a[:, r - 1, None, None] != bj[r - 1]
         cand = torch.minimum(up + 1, w + cost)
-        vals = []
-        left = torch.full_like(w[..., 0], inf)
-        for d in range(K):
-            col = r + d - band  # j[d]
-            v = torch.minimum(cand[..., d], left + 1)
-            if col == 0:
-                v = torch.full_like(v, r)
-            if col < 0:
-                v = torch.full_like(v, inf)
-            v = torch.where(col > lb[..., 0], inf, v).clamp(max=inf)
-            vals.append(v)
-            left = v
+        cand = torch.where(before_start[r - 1], inf, torch.where(at_start[r - 1], r, cand))
+        v = torch.cummin(cand - steps, dim=-1).values + steps
+        v = torch.where(past_end[:, r - 1], inf, v).clamp(max=inf)
         # Freeze once past a's true length so w holds row `la` at the end.
-        w = torch.where(r <= la, torch.stack(vals, dim=-1), w)
+        w = torch.where(in_a[r - 1], v, w)
     # Answer = dp[la][lb] = window offset lb - la (saturated if off-band).
     off = (lb - la)[..., 0]
     idx = (off + band).clamp(0, K - 1)

@@ -160,9 +160,9 @@ def test_host_run_over_exact_members_reproduces_jax_row_for_row():
 
 def _default_members(alphabet, seq_len):
     """The port's counterparts of the JAX package's `tpu_native_default_models`."""
-    from chip_smoke import default_members
+    from flexs_tpu_torch.baselines.explorers.dyna_ppo import tpu_native_default_models
 
-    return default_members(flexs_tpu_torch, seq_len, alphabet, device="cpu")
+    return tpu_native_default_models(seq_len, alphabet, device="cpu")
 
 
 def test_default_members_mirror_jax():

@@ -382,3 +382,119 @@ def test_gp_surrogate_cells_on_card_equal_standalone_runs(card):
         single = jit_runner.run_adalead_nam(fn, params, tokens[c], cfg, 1.0, gen(c))
         for field, got, want in zip(single._fields, cells, single):
             assert torch.equal(got[c], want), (c, field)
+
+
+# -- The host explorers' components (chip_smoke.py phase 11a, at small widths).
+
+
+def test_cmaes_tell_on_card_against_cpu(card):
+    from flexs_tpu_torch.ops import cmaes
+
+    rng = np.random.default_rng(0)
+    n, popsize = 96, 12
+    state = cmaes.init(rng.normal(size=n).astype(np.float32), 0.4, device="cpu")
+    for count in (0, cmaes.lazy_gap(n, popsize) - 1):  # the second tell refreshes eigh
+        state = state._replace(count=count)
+        sols = rng.normal(size=(popsize, n)).astype(np.float32)
+        fits = rng.random(popsize).astype(np.float32)
+        on_card = cmaes.tell_numpy(
+            type(state)(*(t.to(card) if torch.is_tensor(t) else t for t in state)), sols, fits)
+        state = cmaes.tell_numpy(state, sols, fits)
+        for got, want in ((on_card.mean, state.mean), (on_card.sigma, state.sigma),
+                          (on_card.cov, state.cov),
+                          (cmaes.covariance(on_card), cmaes.covariance(state))):
+            assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_vae_on_card_against_cpu(card):
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.utils.vae import VAE
+
+    rng = np.random.default_rng(1)
+    seqs = flexs.Alphabet(flexs.AAS).decode(rng.integers(0, 20, (60, 12)))
+    on_cpu = VAE(12, flexs.AAS, intermediate_dim=64, epochs=1, verbose=False, device="cpu")
+    on_cpu.train_model(seqs, np.ones(len(seqs)))
+    on_card = VAE(12, flexs.AAS, intermediate_dim=64, verbose=False, device=card)
+    on_card.set_weights({k: v.to(card) for k, v in on_cpu.get_weights().items()})
+    z = rng.standard_normal((8, 2)).astype(np.float32)
+    assert np.abs(on_card.decode_numpy(z) - on_cpu.decode_numpy(z)).max() <= 1e-5
+    got, want = (v.calculate_log_probability(seqs) for v in (on_card, on_cpu))
+    assert np.abs(got - want).max() <= 1e-5
+    assert on_card.generate(10, seqs) == on_cpu.generate(10, seqs)
+    # Training on the card: the CUDA-graph steps equal eager steps bitwise.
+    graphed, eager = (VAE(12, flexs.AAS, intermediate_dim=64, epochs=2, verbose=False,
+                          device=card) for _ in range(2))
+    eager.cuda_graph = False
+    for vae in (graphed, eager):
+        vae.train_model(seqs, np.linspace(0.5, 1.0, len(seqs)))
+    for a, b in zip(graphed.get_weights().values(), eager.get_weights().values()):
+        assert torch.equal(a, b)
+
+
+def test_q_network_on_card_against_cpu(card):
+    import flexs_tpu_torch as flexs
+
+    dqns = [flexs.baselines.explorers.DQN(
+        None, rounds=1, sequences_batch_size=8, model_queries_per_batch=8,
+        starting_sequence="MAQASVVANQ", alphabet=flexs.AAS, train_epochs=3, seed=0, device=d)
+        for d in ("cpu", card)]
+    for dqn in dqns:
+        dqn.initialize_data_structures()
+    dqns[1].q_network.load_state_dict(dqns[0].q_network.state_dict())
+    rng = np.random.default_rng(2)
+    eye = np.eye(20, dtype=np.float32)
+    states = eye[rng.integers(0, 20, (3, 10))].reshape(3, -1)
+    want, got = (d.all_action_q(states) for d in dqns)
+    assert np.abs(got - want).max() <= 1e-5
+    obs = eye[rng.integers(0, 20, (3, 8, 10))].reshape(3, 8, -1)
+    nxt = eye[rng.integers(0, 20, (3, 8, 10))].reshape(3, 8, -1)
+    batch = (obs, nxt * (1 - obs), rng.random((3, 8)).astype(np.float32), nxt)
+    for d in dqns:
+        d._train(*(torch.as_tensor(a, device=d.device) for a in batch))
+    vec = [torch.nn.utils.parameters_to_vector(d.q_network.parameters()).cpu() for d in dqns]
+    assert torch.allclose(vec[1], vec[0], rtol=1e-4, atol=1e-4)
+
+
+def test_actor_critic_on_card_against_cpu(card):
+    from flexs_tpu_torch.rl import PPOAgent
+
+    agents = [PPOAgent(42, 6, seed=0, device=d) for d in ("cpu", card)]
+    agents[1].net.load_state_dict(agents[0].net.state_dict())
+    rng = np.random.default_rng(3)
+    t = 40
+    batch = {"obs": rng.random((t, 42)).astype(np.float32), "actions": rng.integers(0, 6, t),
+             "logprobs": np.full(t, -np.log(6)), "rewards": rng.random(t),
+             "dones": np.arange(t) % 8 == 7, "values": rng.random(t),
+             "masks": rng.random((t, 6)) < 0.8}
+    batch["masks"][np.arange(t), batch["actions"]] = True
+    with torch.no_grad():
+        (lc, vc), (lg, vg) = (a.net(torch.as_tensor(batch["obs"], device=a.device))
+                              for a in agents)
+    assert torch.allclose(lg.cpu(), lc, atol=1e-5) and torch.allclose(vg.cpu(), vc, atol=1e-5)
+    losses = [a.train(batch) for a in agents]
+    assert abs(losses[0] - losses[1]) <= 1e-4
+    vec = [torch.nn.utils.parameters_to_vector(a.net.parameters()).cpu() for a in agents]
+    assert torch.allclose(vec[1], vec[0], rtol=1e-4, atol=1e-4)
+
+
+def test_dynappo_density_on_card_equals_cpu(card):
+    import flexs_tpu_torch as flexs
+    from flexs_tpu_torch.baselines.explorers.environments.dyna_ppo import DynaPPOEnvironment
+
+    rng = np.random.default_rng(4)
+    alphabet = flexs.Alphabet(flexs.AAS)
+    base = rng.integers(0, 20, 20)
+    cache = np.repeat(base[None], 300, axis=0)
+    for row in cache:
+        pos = rng.choice(20, rng.integers(1, 4), replace=False)
+        row[pos] = rng.integers(0, 20, len(pos))
+    shifted = np.roll(cache[:20], 1, axis=1)
+    seqs = alphabet.decode(np.concatenate([cache, shifted]))
+    fitness = rng.random(len(seqs))
+    queries = seqs[:8] + alphabet.decode(base[None])
+    densities = []
+    for d in ("cpu", card):
+        env = DynaPPOEnvironment(flexs.AAS, 20, None, None, 8, device=d)
+        env._density.update(seqs, fitness)
+        densities.append(env._density.densities(queries))
+    assert np.array_equal(densities[0], densities[1]) and (densities[0] > 0).all()

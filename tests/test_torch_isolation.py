@@ -39,7 +39,15 @@ def test_port_sources_are_found():
                    "profile_fold.py", "baselines/models/torch_linear.py",
                    "baselines/models/torch_gp.py", "baselines/models/torch_trees.py",
                    "baselines/models/sklearn_models.py",
-                   "baselines/models/adaptive_ensemble.py"):
+                   "baselines/models/adaptive_ensemble.py", "utils/replay_buffers.py",
+                   "utils/vae.py", "ops/cmaes.py", "rl/__init__.py", "rl/ppo.py",
+                   "baselines/explorers/random.py", "baselines/explorers/genetic_algorithm.py",
+                   "baselines/explorers/cmaes.py", "baselines/explorers/bo.py",
+                   "baselines/explorers/cbas_dbas.py", "baselines/explorers/dqn.py",
+                   "baselines/explorers/ppo.py", "baselines/explorers/dyna_ppo.py",
+                   "baselines/explorers/environments/__init__.py",
+                   "baselines/explorers/environments/ppo.py",
+                   "baselines/explorers/environments/dyna_ppo.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -62,7 +70,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.ops.pdb, flexs_tpu_torch.runtime.surrogate, "
         "flexs_tpu_torch.baselines.models.torch_model, flexs_tpu_torch.baselines.models.convert, "
         "flexs_tpu_torch.ops.rna_fold, flexs_tpu_torch.landscapes.bert_gfp, "
-        "flexs_tpu_torch.profile_fold; "
+        "flexs_tpu_torch.profile_fold, flexs_tpu_torch.rl, flexs_tpu_torch.baselines.explorers, "
+        "flexs_tpu_torch.baselines.explorers.environments, flexs_tpu_torch.utils.vae, "
+        "flexs_tpu_torch.ops.cmaes; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -79,6 +89,8 @@ def test_package_imports_without_sklearn():
         "import sys; sys.modules['sklearn'] = None; "
         "import flexs_tpu_torch, flexs_tpu_torch.baselines.models as m; "
         "m.AdaptiveEnsemble([m.TorchKNNRegressor('ACGU', device='cpu')]); "
+        "import flexs_tpu_torch.baselines.explorers.dyna_ppo as d; "
+        "d.DynaPPOEnsemble(8, 'ACGU', device='cpu'); "
         "m.SklearnModel; "
         "assert 'sklearn.linear_model' not in sys.modules\n"
         "try:\n    m.LinearRegression('ACGU')\nexcept ImportError:\n    sys.exit(0)\n"

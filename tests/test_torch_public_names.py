@@ -14,8 +14,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SUBPACKAGES = (
-    "", "ops", "landscapes", "baselines.models", "baselines.explorers", "runtime",
-    "parallel", "utils",
+    "", "ops", "landscapes", "baselines.models", "baselines.explorers",
+    "baselines.explorers.environments", "runtime", "parallel", "rl", "utils",
 )
 
 # The port's name for a JAX name.
@@ -29,11 +29,6 @@ RENAMED = {
 
 # Names not ported yet -> ROADMAP.md item.
 NOT_PORTED = {
-    ("", "rl"): 14,
-    **{("baselines.explorers", n): 14 for n in (
-        "BO", "GPR_BO", "environments", "VAE", "CbAS", "CMAES", "DQN", "DynaPPO",
-        "DynaPPOEnsemble", "DynaPPOMutative", "GeneticAlgorithm", "PPO", "Random",
-    )},
     **{("runtime", n): 16 for n in (
         "DeviceBONAM", "run_bo_nam", "DeviceCbASNAM", "VAEConfig", "run_cbas_nam",
         "DeviceCMAESNAM", "run_cmaes_nam", "DeviceDQNNAM", "run_dqn_nam",
@@ -44,9 +39,6 @@ NOT_PORTED = {
     )},
     ("utils", "checkpointing"): 17,
     ("utils", "profiling"): 17,
-    ("utils", "replay_buffers"): 14,
-    ("utils", "vae"): 14,
-    ("utils", "VAE_utils"): 14,
 }
 
 
@@ -109,3 +101,16 @@ def test_item_13_names_are_ported():
                  "RandomForest", "SklearnClassifier", "SklearnModel", "SklearnRegressor"):
         assert hasattr(models, name), name
     assert issubclass(models.LogisticRegression, models.SklearnRegressor)  # the reference's quirk
+
+
+def test_item_14_names_are_ported():
+    from flexs_tpu_torch import rl, utils
+    from flexs_tpu_torch.baselines import explorers
+
+    assert not [key for key, item in NOT_PORTED.items() if item == 14]
+    for name in _exported("baselines.explorers"):
+        assert hasattr(explorers, name), name
+    assert utils.VAE_utils is utils.vae and explorers.VAE is utils.vae.VAE
+    assert explorers.environments.PPOEnvironment is not None
+    assert rl.PPOAgent is rl.ppo.PPOAgent
+    assert utils.replay_buffers.PrioritizedReplayBuffer is not None
