@@ -73,25 +73,26 @@ Phases (any failed check raises, and the script exits nonzero):
         required;
      b. the readings of `python -m flexs_tpu_torch.profile_fold`;
      c. the fused run: DeviceAdaleadNAM on RNAFolding from L100_RNA1's start
-        1 (L=100), NAM 0.9, seed 0, 10 x 100 x 2000, then again under
-        torch.profiler (CUDA activity only): identical frames, run
-        invariants, true_score == get_fitness exactly; wall, queries/s,
-        launches, device time, top true_score;
+        1 (L=100), NAM 0.9, seed 0, 10 x 100 x 2000, then its first 2
+        rounds again under torch.profiler (CUDA activity only): the 2-round
+        frame equal to the 10-round run's first rounds, run invariants,
+        true_score == get_fitness exactly; wall, queries/s, launches,
+        device time, top true_score;
      d. the host run: Adalead + NoisyAbstractModel, 3 rounds;
-     e. a generic sweep over starts 1-5 at ss 0.9 in lockstep, cut to 2
-        rounds: cells 1 and 5 equal standalone runs;
+     e. a generic sweep over starts 1-5 at ss 0.9 in lockstep, cut to 1
+        round: cells 1 and 5 equal standalone runs;
   9. GFP at full width (12 layers, hidden 768, 12 heads, 256 tokens; the
      seeded-init oracle, as no checkpoint is in the checkout; 100 rows a
      forward pass), TF32 off for the whole phase, no duplex build may
      launch:
      a. the oracle on the card against the CPU on the wild type and the
         three starts, rtol and atol 1e-4;
-     b. the fused run from ed_10_wt, NAM 0.9, 10 x 100 x 2000, under
+     b. the fused run from ed_10_wt, NAM 0.9, 5 x 100 x 2000, under
         torch.profiler (CUDA activity only): wall, queries/s, peak memory,
         device idle share and the oracle's share of the wall (CUDA events);
-     c. the host run, 3 rounds, on a landscape scoring 32 rows a pass;
-     d. a generic sweep over the 3 starts, cut to 1 round, one cell after
-        another ("map");
+     c. the host run, 2 rounds, on a landscape scoring 32 rows a pass;
+     d. a generic sweep over 2 of the 3 starts, cut to 1 round, one cell
+        after another ("map");
   10. the rest of the models and the exact-GP surrogate on RNABinding
      L100_RNA1 (b-d launch the main path's kernel through the oracle, and
      no row-cost build may launch):
@@ -139,7 +140,32 @@ Phases (any failed check raises, and the script exits nonzero):
      d. BO over NAM 0.9 (3 rounds) and DynaPPO with its default members
         (2 rounds) on L100_RNA1 from start 1: duplex launches and tops
         pinned (34, 0.587749; 17, 0.579332);
-  12. print the wall of each phase, one JSON line describing each kernel,
+  12. the fused runners of the non-RL explorers (a, b and d's GA sweep
+     launch no duplex build; c and d's BO sweep launch the main path's
+     kernel through the oracle, and no row-cost build may launch):
+     a. the paper's fused 3MSI rows (scripts/run_paper_table.py:161-214):
+        DeviceRandomNAM (elitist=False), DeviceGeneticAlgorithmNAM,
+        DeviceCMAESNAM (maximize=True) and DeviceBONAM over a perfect model
+        of RosettaFolding 3msi, start ed_3_wt, seed 0, 10 x 100 x 2000;
+        DeviceCbASNAM with algo "cbas" and "dbas" cut to 2 rounds: run
+        invariants, true_score == get_fitness exactly on each round's rows;
+        wall, queries/s, host syncs and top beside phase 11b's host top
+        and the reference's 10-round mean (a reading); the VAE's CUDA-graph
+        steps equal to eager ones bitwise on a one-cycle DbAS run;
+     b. GPR_BO over all 65,536 8-mers of SIX6_REF_R1, 10 rounds x 100, with
+        NAM 0.9 (Thompson) and a perfect model: the model cost grows by
+        65,536 a round, the perfect run's round 1 is the table's top 100
+        without the start, and the perfect run on the card equals the
+        same run on the CPU row for row;
+     c. DeviceGeneticAlgorithmNAM and DeviceBONAM over NAM 0.9 on L100_RNA1
+        from start 1, 10 x 100 x 2000, each twice: identical frames, duplex
+        launches and tops pinned (2,949, 0.632479; 111, 0.584328);
+     d. run_robustness_sweep(algorithm="ga") over 4 TF-Bind landscapes x
+        ss {0.5, 0.9} x seeds {0, 1} in one lockstep chunk of 16 cells (2
+        rounds), and run_landscape_robustness_sweep(algorithm="bo") over
+        L100_RNA1's starts 1-3: first and last cells equal standalone
+        runs; wall, s per cell, sequences scored/s;
+  13. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -205,9 +231,13 @@ FOLD_STRUCTURED = (
 )
 FOLD_TOP = 95.396645
 # The fold sweep's rounds: a 10-round lockstep sweep of the launch-bound fold
-# took 85 s on an H100 (PERF.md), so its depth is cut; cells are held to
-# standalone runs of the same depth.
-FOLD_SWEEP_ROUNDS = 2
+# took 85 s on an H100 (PERF.md), so its depth is cut (to 2 rounds, and to 1
+# since phase 12 came); cells are held to standalone runs of the same depth.
+FOLD_SWEEP_ROUNDS = 1
+# The profiled fused run's rounds: under the profiler the 10-round run took
+# 107 s and its events 27 s more on an H100 (PERF.md, Cells), so only its
+# first rounds are profiled, and held to the full run's first rounds.
+FOLD_PROFILED_ROUNDS = 2
 # Phase 9: GFP at full width; card vs CPU, and the depth of its host run and sweep.
 GFP_TOLERANCE = 1e-4  # rtol and atol
 GFP_WIDTH = dict(layers=12, hidden=768)  # TAPE's bert-base; 12 heads, 256 tokens
@@ -215,7 +245,10 @@ GFP_WIDTH = dict(layers=12, hidden=768)  # TAPE's bert-base; 12 heads, 256 token
 # a 100-row oracle call is padded.  The host run keeps the reference's 32:
 # its model queries come in small batches, each padded to a whole chunk.
 GFP_BATCH = 100
-GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS = 3, 1
+# The fused run is cut in depth to 5 rounds, the host run to 2 and the sweep
+# to 2 of the 3 starts since phase 12 came (the script took 1,078 s of phases
+# with 10, 3 and 3 on an H100, PERF.md, Cells).
+GFP_FUSED_ROUNDS, GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS, GFP_SWEEP_STARTS = 5, 2, 1, 2
 # Phase 10: the rest of the models and the exact-GP surrogate on RNABinding
 # L100_RNA1.  (a) Each regressor on the card against the CPU, on numpy-seeded
 # training rows at the landscape's width (labels from its oracle) and as many
@@ -266,6 +299,30 @@ GPR_BO_ROUNDS = 2
 L100_BO_ROUNDS, L100_DYNAPPO_ROUNDS = 3, 2
 L100_BO_LAUNCHES, L100_BO_TOP = 34, 0.587749
 L100_DYNAPPO_LAUNCHES, L100_DYNAPPO_TOP = 17, 0.579332
+# Phase 12: the fused runners of the non-RL explorers.  (a) The paper's
+# fused 3MSI rows (scripts/run_paper_table.py:161-214): a perfect model of
+# RosettaFolding 3msi, start ed_3_wt, seed 0, 10 rounds x 100 x 2000; the
+# CbAS and DbAS rows cut in depth to 2 rounds (each later round trains 21
+# VAE bursts).  Tops are read beside phase 11b's host explorers and the
+# reference's 10-round means, not gated.
+FUSED_RUN = dict(rounds=10, sequences_batch_size=100, model_queries_per_batch=2000)
+FUSED_CBAS_ROUNDS = 2
+# (b) GPR_BO over all 65,536 8-mers of SIX6_REF_R1, 10 rounds x 100.
+GPR_BO_FUSED_ROUNDS = 10
+# The VAE's CUDA-graph steps are held bitwise to eager ones on a DbAS run of
+# one cycle a round (two training bursts), 2 rounds.
+GRAPH_CHECK_QUERIES = 100
+# (c) GA and BO over NAM 0.9 on L100_RNA1 from start 1, 10 x 100 x 2000:
+# duplex launches and top true_score, pinned from their first run on an H100.
+FUSED_L100_PINS = {"ga": (2949, 0.632479), "bo": (111, 0.584328)}
+# (d) Sweeps: GA over 4 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1} in
+# one lockstep chunk of 16 cells, and BO over L100_RNA1's starts 1-3.  The GA
+# sweep is cut in depth to 2 rounds: on the 4^8 space its population runs
+# out of novel children, so a round runs many generations (a host sync
+# each), and 10 rounds took 252 s for the chunk on an H100 (PERF.md, Cells).
+FUSED_SWEEP_LANDSCAPES, FUSED_SWEEP_SS, FUSED_SWEEP_SEEDS = 4, (0.5, 0.9), (0, 1)
+FUSED_GA_SWEEP_ROUNDS = 2
+FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
 
 
 def card_line() -> str:
@@ -786,23 +843,23 @@ def fold_phases(flexs, cuda_duplex, card: str) -> dict:
     land = rna.RNAFolding()
     nam_kw = dict(**PHASE6_RUN, signal_strength=0.9)
 
-    def fused():
+    def fused(rounds):
         cost = land.cost
         runner = flexs.runtime.DeviceAdaleadNAM(land, flexs.RNAA, starting_sequence=starts[0],
-                                                seed=0, **nam_kw)
+                                                seed=0, **{**nam_kw, "rounds": rounds})
         (df, _), wall = timed(lambda: runner.run(verbose=False))
         return df, wall, land.cost - cost
 
     steps.append(("c fused", time.perf_counter()))
-    df, wall, landscape_cost = fused()
+    df, wall, landscape_cost = fused(PHASE6_RUN["rounds"])
     steps.append(("c profiled run and trace", time.perf_counter()))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        df_again, profiled_wall, _ = fused()
+        df_again, profiled_wall, _ = fused(FOLD_PROFILED_ROUNDS)
     steps.append(("c device totals", time.perf_counter()))
     kernels = device_kernels(prof)
     steps.append(("c checks", time.perf_counter()))
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    pd.testing.assert_frame_equal(df, df_again)
+    pd.testing.assert_frame_equal(df[df["round"] <= FOLD_PROFILED_ROUNDS], df_again)
     rounds, batch, budget = (
         PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
     check_run_frame(df, rounds, batch, budget, starts[0], per_round=batch)
@@ -814,15 +871,16 @@ def fold_phases(flexs, cuda_duplex, card: str) -> dict:
     queries = int(df["model_cost"].max()) + landscape_cost
     fused_reading = {
         "wall_s": wall, "queries_per_s": queries / wall, "top": top, "rows": len(df),
-        "profiled_wall_s": profiled_wall, "kernel_launches": sum(e.count for e in kernels),
+        "profiled_rounds": FOLD_PROFILED_ROUNDS, "profiled_wall_s": profiled_wall,
+        "kernel_launches": sum(e.count for e in kernels),
         "device_kernel_s": device_s, "device_idle_share_vs_profiled_wall": 1 - device_s
         / profiled_wall, "top_kernels": [{"name": e.key[:80], "count": e.count,
                                           "device_s": e.self_device_time_total / 1e6}
                                          for e in kernels[:6]],
     }
     print(f"rnafolding fused run (L100_RNA1 start 1, NAM 0.9, 10 x 100 x 2000): "
-          f"{json.dumps(fused_reading)}; the two runs' frames are identical and true_score == "
-          f"get_fitness [{card}]")
+          f"{json.dumps(fused_reading)}; the profiled run's frame is the full run's first "
+          f"{FOLD_PROFILED_ROUNDS} rounds and true_score == get_fitness [{card}]")
 
     # d. The host run.
     steps.append(("d host", time.perf_counter()))
@@ -914,8 +972,9 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
              "parameters": sum(p.numel() for p in m.parameters())}
     assert (m.layers, m.hidden, m.heads, m.max_len) == (
         GFP_WIDTH["layers"], GFP_WIDTH["hidden"], GFP_WIDTH["hidden"] // 64, 256), shape
+    fused_run = {**PHASE6_RUN, "rounds": GFP_FUSED_ROUNDS}
     rounds, batch, budget = (
-        PHASE6_RUN[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
+        fused_run[k] for k in ("rounds", "sequences_batch_size", "model_queries_per_batch"))
 
     # a. The oracle on the card against the CPU.
     starts = list(land.starts.values())
@@ -933,7 +992,7 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
     with call_events(bert_gfp, "_gfp_fitness") as events:
         runner = flexs.runtime.DeviceAdaleadNAM(
             land, flexs.AAS, starting_sequence=starts[0], signal_strength=0.9, seed=0,
-            **PHASE6_RUN)
+            **fused_run)
         cost = land.cost
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -960,7 +1019,7 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_s": e.self_device_time_total / 1e6} for e in kernels[:6]],
     }
-    print(f"gfp fused run (ed_10_wt, NAM 0.9, 10 x 100 x 2000, under the profiler): "
+    print(f"gfp fused run (ed_10_wt, NAM 0.9, {rounds} x 100 x 2000, under the profiler): "
           f"{json.dumps(fused_reading)} [{card}]")
 
     # c. The host run, on the reference's 32 rows a forward pass.
@@ -980,20 +1039,24 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
           f"[{card}]")
 
     steps.append(("d sweep", time.perf_counter()))
-    # d. A generic sweep over the 3 starts, one cell after another: in lockstep
-    # every step scores all cells' rows, which costs the oracle-bound GFP
-    # run about 3x (194 s for these 3 cells at 2 rounds on an H100, PERF.md).
+    # d. A generic sweep over 2 of the 3 starts (cut from 3 since phase 12
+    # came, PERF.md, Cells), one cell after another: in lockstep every step
+    # scores all cells' rows, which costs the oracle-bound GFP run about 3x
+    # (194 s for 3 cells at 2 rounds on an H100, PERF.md).
     torch.cuda.reset_peak_memory_stats()
     sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
-        [land], flexs.AAS, starts, [0.9], seeds=[0], rounds=GFP_SWEEP_ROUNDS,
-        sequences_batch_size=batch, model_queries_per_batch=budget, cell_mode="map"))
-    assert len(sweep) == 3 and (sweep["max_fitness"] >= sweep["start_fitness"]).all()
+        [land], flexs.AAS, starts[:GFP_SWEEP_STARTS], [0.9], seeds=[0],
+        rounds=GFP_SWEEP_ROUNDS, sequences_batch_size=batch, model_queries_per_batch=budget,
+        cell_mode="map"))
+    assert len(sweep) == GFP_SWEEP_STARTS
+    assert (sweep["max_fitness"] >= sweep["start_fitness"]).all()
     scored = int(sweep["model_cost"].sum() + sweep["landscape_cost"].sum())
     sweep_reading = {"cells": len(sweep), "rounds": GFP_SWEEP_ROUNDS, "wall_s": sweep_wall,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                      "sequences_scored_per_s": scored / sweep_wall,
                      "max_fitness": sweep["max_fitness"].tolist()}
-    print(f"gfp generic sweep (map, 3 starts): {json.dumps(sweep_reading)} [{card}]")
+    print(f"gfp generic sweep (map, {GFP_SWEEP_STARTS} starts): {json.dumps(sweep_reading)} "
+          f"[{card}]")
     no_duplex_launches(cuda_duplex, "9")
     steps.append(("end", time.perf_counter()))
     walls = step_walls(steps)
@@ -1538,6 +1601,219 @@ def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
             "l100": l100, "step_walls_s": walls}
 
 
+def check_fused_frame(df, landscape, rounds: int, batch: int, start: str, unique: bool) -> None:
+    """A fused runner's frame: its rounds and row counts, costs, and true_score == get_fitness.
+
+    `true_score` must equal `get_fitness` exactly on each round's rows
+    scored as one batch: the runner scores a round's proposals as one
+    batch, and on the card the order of a Rosetta row sum depends on the
+    batch's shape (scored as one batch of the whole frame, 3MSI's rows
+    move by one ulp).  `unique`: no sequence measured twice (Random's
+    uniform sample, CMA-ES's and BO's pools may repeat a measured
+    sequence, and CbAS's round 1 the start, as in the JAX package).
+    """
+    check_explorer_frame(df, landscape, rounds, batch, start)
+    assert np.isnan(df["model_score"].iloc[0])
+    if unique:
+        assert df["sequence"].is_unique, "a sequence was measured twice"
+    truth = np.concatenate([
+        landscape.get_fitness(df[df["round"] == r]["sequence"].tolist())
+        for r in range(rounds + 1)
+    ])
+    assert np.array_equal(df["true_score"].to_numpy(), truth), float(
+        np.abs(df["true_score"].to_numpy() - truth).max())
+
+
+def fused_run(runner, landscape):
+    """(frame, reading) of one fused run: wall, queries/s, host syncs, top, rows."""
+    from flexs_tpu_torch.runtime import jit_runner
+
+    cost = landscape.cost
+    jit_runner.reset_run_counts()
+    (df, _), wall = timed(lambda: runner.run(verbose=False))
+    queries = int(df["model_cost"].iloc[-1]) + landscape.cost - cost
+    return df, {"wall_s": wall, "queries_per_s": queries / wall,
+                "host_syncs": jit_runner.run_counts["syncs"],
+                "draw_calls": jit_runner.run_counts["draw_calls"],
+                "top": float(df["true_score"].max()), "rows": len(df),
+                "model_cost": int(df["model_cost"].iloc[-1])}
+
+
+def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
+    """Phase 12 (a-d): the fused runners of the non-RL explorers on the card."""
+    import pandas as pd
+    from flexs_tpu_torch import runtime
+    from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep, run_robustness_sweep
+    from flexs_tpu_torch.runtime import jit_runner
+
+    steps = [("a 3msi", time.perf_counter())]
+    # a. The paper's fused 3MSI rows over a perfect model.
+    problem = rosetta.registry()["3msi"]
+    start = problem["starts"]["ed_3_wt"]
+    paper = {}
+    for name, cls, kw, host_name in (
+        ("random", runtime.DeviceRandomNAM, dict(elitist=False), "random"),
+        ("ga", runtime.DeviceGeneticAlgorithmNAM, {}, "genetic"),
+        ("cmaes", runtime.DeviceCMAESNAM, dict(maximize=True), "cmaes"),
+        ("bo", runtime.DeviceBONAM, {}, "bo"),
+        ("cbas", runtime.DeviceCbASNAM, dict(algo="cbas"), "cbas"),
+        ("dbas", runtime.DeviceCbASNAM, dict(algo="dbas"), "dbas"),
+    ):
+        steps.append((f"a {name}", time.perf_counter()))
+        run = {**FUSED_RUN, "rounds": FUSED_CBAS_ROUNDS} if cls is runtime.DeviceCbASNAM \
+            else FUSED_RUN
+        land = rosetta.RosettaFolding(**problem["params"])
+        runner = cls(land, flexs.AAS, starting_sequence=start, model="perfect", seed=0,
+                     **run, **kw)
+        cuda_duplex.reset_launch_counts()
+        df, reading = fused_run(runner, land)
+        no_duplex_launches(cuda_duplex, f"12a {name}")
+        assert df["measurement_cost"].iloc[-1] == len(df) == land.cost
+        check_fused_frame(df, land, run["rounds"], run["sequences_batch_size"], start,
+                          unique=name == "ga")
+        reading.update(rounds=run["rounds"], host_top_2_rounds=host_tops[host_name]["top"],
+                       reference_10_round_mean=PAPER_REFERENCE_MEAN[host_name])
+        paper[name] = reading
+        print(f"fused 3msi {name} ({run['rounds']} rounds, perfect model): "
+              f"{json.dumps(reading)} [{card}]")
+
+    # The VAE steps as CUDA-graph replays equal eager ones (DbAS, one cycle a round).
+    steps.append(("a graph vs eager", time.perf_counter()))
+    land = rosetta.RosettaFolding(**problem["params"])
+    cfg = runtime.AdaleadConfig(
+        rounds=FUSED_CBAS_ROUNDS, sequences_batch_size=FUSED_RUN["sequences_batch_size"],
+        model_queries_per_batch=GRAPH_CHECK_QUERIES, alphabet_size=20, perfect_model=True)
+    tokens = torch.as_tensor(flexs.Alphabet(flexs.AAS).encode_one(start), device=land.device)
+    graph_walls = {}
+    results = []
+    for graph in (True, False):
+        gen = torch.Generator(device=land.device)
+        gen.manual_seed(0)
+        res, graph_walls[graph] = timed(lambda: runtime.cbas_runner.run_cbas_nam(
+            *land.device_fitness(), tokens, cfg, 1.0, gen, algo="dbas", cuda_graph=graph))
+        results.append(res)
+    for name, a, b in zip(results[0]._fields, *results):
+        assert torch.equal(a, b), f"graphed DbAS != eager in {name}"
+    paper["dbas"]["graph_vs_eager_one_cycle_s"] = [graph_walls[True], graph_walls[False]]
+    print(f"fused dbas, one cycle a round: CUDA-graph VAE steps == eager bitwise; walls "
+          f"{graph_walls[True]} s graphed, {graph_walls[False]} s eager [{card}]")
+
+    # b. GPR_BO over the whole TF-Bind-8 space.
+    steps.append(("b gpr_bo", time.perf_counter()))
+    tf_problem = tf_binding.registry()["SIX6_REF_R1"]
+    tf_start = tf_problem["starts"][0]
+    gpr = {}
+    frames = {}
+    for label, model, device in (("nam_thompson", "nam", None), ("perfect", "perfect", None),
+                                 ("perfect_cpu", "perfect", "cpu")):
+        land = tf_binding.TFBinding(**tf_problem["params"], device=device)
+        runner = runtime.DeviceGPRBONAM(
+            land, flexs.DNAA, rounds=GPR_BO_FUSED_ROUNDS, sequences_batch_size=100,
+            model_queries_per_batch=2000, starting_sequence=tf_start, model=model,
+            signal_strength=0.9, seed=0, device=device)
+        cuda_duplex.reset_launch_counts()
+        df, reading = fused_run(runner, land)
+        no_duplex_launches(cuda_duplex, f"12b {label}")
+        check_fused_frame(df, land, GPR_BO_FUSED_ROUNDS, 100, tf_start, unique=True)
+        costs = df.groupby("round")["model_cost"].first().to_numpy()
+        assert (np.diff(costs) == 4**8).all() and costs[1] == 4**8, costs
+        frames[label], gpr[label] = df, reading
+        print(f"fused gpr_bo {label} (SIX6_REF_R1, {GPR_BO_FUSED_ROUNDS} rounds): "
+              f"{json.dumps(reading)} [{card}]")
+    table = tf_binding.TFBinding(**tf_problem["params"], device="cpu").table.numpy()
+    order = np.argsort(-table, kind="stable")
+    start_idx = int(flexs.Alphabet(flexs.DNAA).encode_one(tf_start) @ (4 ** np.arange(7, -1, -1)))
+    want = table[order[order != start_idx][:100]]
+    got = frames["perfect"][frames["perfect"]["round"] == 1]["true_score"].to_numpy()
+    assert np.array_equal(got, want.astype(np.float64)), "round 1 is not the table's top 100"
+    pd.testing.assert_frame_equal(frames["perfect"], frames["perfect_cpu"])
+    print("fused gpr_bo perfect: round 1 == the table's top 100 without the start; "
+          f"card == CPU row for row [{card}]")
+
+    # c. The kernel's path: GA and BO over NAM 0.9 on L100_RNA1, twice each.
+    reg = rna.registry()
+    l100_start = reg["L100_RNA1"]["starts"][1]
+    l100 = {}
+    for name, cls in (("ga", runtime.DeviceGeneticAlgorithmNAM), ("bo", runtime.DeviceBONAM)):
+        steps.append((f"c {name}", time.perf_counter()))
+        runs = []
+        for _ in range(2):
+            land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+            runner = cls(land, flexs.RNAA, starting_sequence=l100_start, signal_strength=0.9,
+                         seed=0, **FUSED_RUN)
+            cuda_duplex.reset_launch_counts()
+            df, reading = fused_run(runner, land)
+            reading["duplex_launches"] = path_launches(cuda_duplex, f"fused L100_RNA1 {name}")
+            check_fused_frame(df, land, FUSED_RUN["rounds"], 100, l100_start,
+                              unique=name == "ga")
+            runs.append((df, reading))
+        pd.testing.assert_frame_equal(runs[0][0], runs[1][0])
+        assert runs[0][1]["duplex_launches"] == runs[1][1]["duplex_launches"]
+        reading = {**runs[0][1], "second_wall_s": runs[1][1]["wall_s"]}
+        l100[name] = reading
+        print(f"fused L100_RNA1 {name} (NAM 0.9, start 1, twice, identical frames): "
+              f"{json.dumps(reading)} [{card}]")
+        launches, top = FUSED_L100_PINS[name]
+        assert reading["duplex_launches"] == launches, (name, reading["duplex_launches"])
+        assert round(reading["top"], 6) == top, (name, reading["top"])
+
+    # d. Sweeps: GA over TF-Bind in one lockstep chunk, BO over L100_RNA1's starts.
+    steps.append(("d ga sweep", time.perf_counter()))
+    names = list(tf_binding.registry())[:FUSED_SWEEP_LANDSCAPES]
+    cuda_duplex.reset_launch_counts()
+    ga_run = {**FUSED_RUN, "rounds": FUSED_GA_SWEEP_ROUNDS}
+    jit_runner.reset_run_counts()
+    ga_sweep, ga_wall = timed(lambda: run_robustness_sweep(
+        names, [tf_start], signal_strengths=FUSED_SWEEP_SS, seeds=FUSED_SWEEP_SEEDS,
+        algorithm="ga", **ga_run))
+    ga_syncs = jit_runner.run_counts["syncs"]
+    no_duplex_launches(cuda_duplex, "12d ga sweep")
+    assert len(ga_sweep) == len(names) * len(FUSED_SWEEP_SS) * len(FUSED_SWEEP_SEEDS)
+    assert (ga_sweep["max_fitness"] >= ga_sweep["start_fitness"]).all()
+
+    def same_as_alone(row, land, cls, alphabet, run):
+        cost = land.cost
+        single, _ = cls(land, alphabet, starting_sequence=row["start"], seed=int(row["seed"]),
+                        signal_strength=float(row["signal_strength"]), **run
+                        ).run(verbose=False)
+        assert row["max_fitness"] == single["true_score"].max(), row
+        assert row["model_cost"] == single["model_cost"].iloc[-1], row
+        assert row["landscape_cost"] == land.cost - cost, row
+
+    for row in (ga_sweep.iloc[0], ga_sweep.iloc[-1]):
+        same_as_alone(row, tf_binding.TFBinding(name=row["landscape"]),
+                      runtime.DeviceGeneticAlgorithmNAM, flexs.DNAA, ga_run)
+    steps.append(("d bo sweep", time.perf_counter()))
+    starts = [reg["L100_RNA1"]["starts"][k] for k in FUSED_RNA_SWEEP_STARTS]
+    land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+    cuda_duplex.reset_launch_counts()
+    bo_sweep, bo_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.RNAA, starts, signal_strengths=[0.9], seeds=[0], algorithm="bo",
+        **FUSED_RUN))
+    bo_launches = path_launches(cuda_duplex, "fused BO sweep")
+    for row in (bo_sweep.iloc[0], bo_sweep.iloc[-1]):
+        same_as_alone(row, rna.RNABinding(**reg["L100_RNA1"]["params"]), runtime.DeviceBONAM,
+                      flexs.RNAA, FUSED_RUN)
+    sweeps = {}
+    for label, df, wall, rounds in (("ga_tf_bind", ga_sweep, ga_wall, FUSED_GA_SWEEP_ROUNDS),
+                                    ("bo_l100", bo_sweep, bo_wall, FUSED_RUN["rounds"])):
+        scored = int(df["model_cost"].sum() + df["landscape_cost"].sum())
+        sweeps[label] = {"cells": len(df), "rounds": rounds, "wall_s": wall,
+                         "s_per_cell": wall / len(df),
+                         "sequences_scored_per_s": scored / wall,
+                         "mean_max_fitness": float(df["max_fitness"].mean())}
+    sweeps["ga_tf_bind"]["host_syncs"] = ga_syncs
+    sweeps["bo_l100"]["duplex_launches"] = bo_launches
+    print(f"fused sweeps (first and last cells == standalone runs): {json.dumps(sweeps)} "
+          f"[{card}]")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 12 step walls (s): {json.dumps(walls)}")
+    return {"paper_3msi": paper, "gpr_bo": gpr, "l100": l100, "sweeps": sweeps,
+            "step_walls_s": walls}
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
@@ -1764,12 +2040,18 @@ def main() -> int:
     explorer_readings = explorer_phases(flexs, cuda_duplex, card)
     print(f"explorer readings: {json.dumps(explorer_readings)}")
 
-    # Wall of each phase, so the script's time can be kept near 700 s.
+    stamps.append(("12 fused runners", time.perf_counter()))
+    # 12. The fused runners of the non-RL explorers, and their sweeps.
+    fused_readings = fused_runner_phases(flexs, cuda_duplex, card,
+                                         explorer_readings["paper_3msi"])
+    print(f"fused runner readings: {json.dumps(fused_readings)}")
+
+    # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 12. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 13. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -1783,6 +2065,9 @@ def main() -> int:
         "gp_host_launches": model_readings["host"]["duplex_launches"],
         "l100_bo_launches": explorer_readings["l100"]["bo"]["duplex_launches"],
         "l100_dynappo_launches": explorer_readings["l100"]["dynappo"]["duplex_launches"],
+        "fused_l100_ga_launches": fused_readings["l100"]["ga"]["duplex_launches"],
+        "fused_l100_bo_launches": fused_readings["l100"]["bo"]["duplex_launches"],
+        "fused_bo_sweep_launches": fused_readings["sweeps"]["bo_l100"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

@@ -1,13 +1,15 @@
-"""Sweep engine: many Adalead runs as lockstep batches of cells.
+"""Sweep engine: many fused runs as lockstep batches of cells.
 
 The reference's evaluators loop serially over sweep cells (reference
 evaluate.py:27-36) and its paper experiments scaled out with independent
 cloud VMs (paper_code/cloud/runner.py:90-126).  Here a grid — landscape x
 starting sequence x signal strength x seed — runs in chunks of cells, each
-chunk one lockstep batch on one device (`run_adalead_nam_cells`): the
-counterpart of the JAX package's vmapped sweep.  A cell's result depends
-only on its own (landscape, start, signal strength, seed), so it equals the
-standalone fused run with that seed, whatever its chunk.
+chunk one lockstep batch on one device through a fused runner's cell-axis
+entry point (`algorithm=`: Adalead by default, or Random, GA, CMA-ES, BO,
+GPR_BO, CbAS or DbAS): the counterpart of the JAX package's vmapped sweep.
+A cell's result depends only on its own (landscape, start, signal
+strength, seed), so it equals the standalone fused run with that seed,
+whatever its chunk.
 
 Two engines share the chunking, checkpoints and summary:
   * `run_robustness_sweep` over TF-binding landscapes: every cell carries
@@ -35,11 +37,51 @@ from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.landscapes import tf_binding
 from flexs_tpu_torch.runtime import surrogate as surrogate_lib
+from flexs_tpu_torch.runtime.bo_runner import run_bo_nam_cells
+from flexs_tpu_torch.runtime.cbas_runner import VAEConfig, run_cbas_nam_cells
+from flexs_tpu_torch.runtime.cmaes_runner import run_cmaes_nam_cells
+from flexs_tpu_torch.runtime.ga_runner import run_ga_nam_cells
+from flexs_tpu_torch.runtime.gpr_bo_runner import run_gpr_bo_nam_cells
 from flexs_tpu_torch.runtime.jit_runner import (
     AdaleadConfig,
     RunResult,
     run_adalead_nam_cells,
 )
+from flexs_tpu_torch.runtime.random_runner import run_random_nam_cells
+
+# Each ported algorithm's cell-axis entry point and the JAX sweep's defaults
+# for its hyperparameters (flexs_tpu/parallel/sweep.py, `_cell_runner`).
+CELL_RUNNERS = {
+    "adalead": (run_adalead_nam_cells, {}),
+    "random": (run_random_nam_cells, {"batch": 64, "mu": 1.0}),
+    "ga": (run_ga_nam_cells, {
+        "population_size": 100, "parent_selection_strategy": "wright-fisher",
+        "children_proportion": 0.2, "parent_selection_proportion": 0.3, "beta": 0.05,
+    }),
+    "cmaes": (run_cmaes_nam_cells, {
+        "population_size": 15, "max_iter": 400, "initial_variance": 0.2, "maximize": False,
+    }),
+    "bo": (run_bo_nam_cells, {"num_chains": 10, "method": "EI"}),
+    "gpr_bo": (run_gpr_bo_nam_cells, {"method": "Thompson"}),
+    "cbas": (run_cbas_nam_cells, {
+        "algo": "cbas", "vae_cfg": VAEConfig(), "Q": 0.7, "cycle_batch_size": 100,
+        "mutation_rate": 0.2,
+    }),
+    "dbas": (run_cbas_nam_cells, {
+        "algo": "dbas", "vae_cfg": VAEConfig(), "Q": 0.7, "cycle_batch_size": 100,
+        "mutation_rate": 0.2,
+    }),
+}
+# The JAX package's RL families, not ported yet (ROADMAP.md, item 16).
+UNPORTED_ALGORITHMS = ("dqn", "ppo", "dynappo", "dynappo_mutative")
+
+
+def _cell_runner(algorithm: str, algorithm_kwargs: Optional[dict]) -> Callable:
+    """`(fitness_fn, params, start_tokens, cfg, signal_strengths, generators) -> RunResult`
+    of `algorithm` with `algorithm_kwargs` over its defaults."""
+    fn, defaults = CELL_RUNNERS[algorithm]
+    kwargs = {**defaults, **(algorithm_kwargs or {})}
+    return lambda *args: fn(*args, **kwargs)
 
 
 def _indexed_table_fitness(params, tokens):
@@ -71,17 +113,18 @@ def _grouped_fitness(params, tokens):
 
 
 def _run_chunk(fitness_fn, cell_params: Callable, start_tokens, signal_strengths, seeds, cfg,
-               device, cell_mode):
+               device, cell_mode, cell_runner: Callable = run_adalead_nam_cells):
     """RunResult (tensors, leading cell axis) of one chunk of cells.
 
     `cell_params(positions)` gives the oracle's params for those cells of
-    the chunk (a list of positions).
+    the chunk (a list of positions); `cell_runner` is the algorithm's
+    cell-axis entry point.
     """
     start = torch.as_tensor(start_tokens, device=device)
     gens = [_generator(s, device) for s in seeds]
 
     def run(pos):
-        return run_adalead_nam_cells(
+        return cell_runner(
             fitness_fn, cell_params(pos), start[pos], cfg, signal_strengths[pos],
             [gens[i] for i in pos],
         )
@@ -190,13 +233,20 @@ def sweep_adalead_nam(
     return _run_in_chunks(
         len(table_idx), chunk_size, checkpoint_dir,
         lambda cs: _sweep_signature(
-            cfg, cs, tables, table_idx, start_tokens, signal_strengths, seeds
+            "adalead", None, cfg, cs, tables, table_idx, start_tokens, signal_strengths, seeds
         ),
         run_chunk,
     )
 
 
-def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, seed_arr) -> str:
+def _algorithm_fields(algorithm: str, algorithm_kwargs: Optional[dict]) -> dict:
+    """The signature's algorithm entries (a NamedTuple value enters as its fields' values)."""
+    return {"algorithm": algorithm,
+            "algorithm_kwargs": sorted((algorithm_kwargs or {}).items())}
+
+
+def _sweep_signature(algorithm, algorithm_kwargs, cfg, chunk_size, tables, table_idx,
+                     start_tokens, ss_arr, seed_arr) -> str:
     """Stable signature of everything that determines a sweep's results.
 
     Each landscape used enters as a content fingerprint of its table (sum,
@@ -215,7 +265,7 @@ def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, s
     h.update(
         json.dumps(
             {
-                "algorithm": "adalead",
+                **_algorithm_fields(algorithm, algorithm_kwargs),
                 "cfg": cfg._asdict(),
                 "chunk_size": chunk_size,
                 "fitness_fn": f"{_indexed_table_fitness.__module__}."
@@ -223,6 +273,7 @@ def _sweep_signature(cfg, chunk_size, tables, table_idx, start_tokens, ss_arr, s
                 "tables": [list(tables.shape), str(tables.dtype), str(tables.device.type)],
                 "fingerprints": fingerprints,
             },
+            default=str,
             sort_keys=True,
         ).encode()
     )
@@ -246,8 +297,9 @@ def _tensor_leaves(obj):
             yield from _tensor_leaves(getattr(obj, f.name))
 
 
-def _landscape_sweep_signature(model, surrogate_spec, cfg, chunk_size, landscapes, fitness_fn,
-                               land_idx, start_tokens, ss_arr, seed_arr, device) -> str:
+def _landscape_sweep_signature(algorithm, algorithm_kwargs, model, surrogate_spec, cfg,
+                               chunk_size, landscapes, fitness_fn, land_idx, start_tokens,
+                               ss_arr, seed_arr, device) -> str:
     """Stable signature of everything that determines a landscape sweep's results.
 
     Each landscape enters by name, by the shapes and dtypes of its params'
@@ -271,7 +323,7 @@ def _landscape_sweep_signature(model, surrogate_spec, cfg, chunk_size, landscape
     h.update(
         json.dumps(
             {
-                "algorithm": "adalead",
+                **_algorithm_fields(algorithm, algorithm_kwargs),
                 "model": model,
                 "surrogate_spec": (
                     sorted((k, v) for k, v in surrogate_spec._asdict().items()
@@ -285,6 +337,7 @@ def _landscape_sweep_signature(model, surrogate_spec, cfg, chunk_size, landscape
                 "params_spec": params_spec,
                 "device": device.type,
             },
+            default=str,
             sort_keys=True,
         ).encode()
     )
@@ -351,7 +404,7 @@ def _summary_df(result, cells) -> pd.DataFrame:
     )
 
 
-def _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec, cell_mode) -> str:
+def _check_options(mesh, algorithm, model, surrogate_spec, cell_mode) -> str:
     """The cell mode "auto" resolves to; raises for options that are not ported or wrong.
 
     "auto" is "map" for a trained surrogate (a chunk's cells would run
@@ -362,11 +415,12 @@ def _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec, cel
         raise NotImplementedError(
             "mesh= (sweeps over several devices) is not ported yet (ROADMAP.md, item 17)"
         )
-    if algorithm != "adalead" or algorithm_kwargs:
+    if algorithm in UNPORTED_ALGORITHMS:
         raise NotImplementedError(
-            "sweeps of other fused algorithms (algorithm=, algorithm_kwargs=) are "
-            "not ported yet (ROADMAP.md, item 16)"
+            f"sweeps of the fused {algorithm!r} runner are not ported yet (ROADMAP.md, item 16)"
         )
+    if algorithm not in CELL_RUNNERS:
+        raise ValueError(f"unknown fused algorithm {algorithm!r}")
     if model not in ("nam", "perfect", "surrogate"):
         raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
     if model == "surrogate":
@@ -412,12 +466,16 @@ def run_landscape_robustness_sweep(
     "vmap" runs each chunk's cells in lockstep, "map" one by one (each a
     standalone run), "auto" picks "map" for a surrogate and "vmap"
     otherwise; a cell's result is the same in every mode.  `chunk_size`
-    and `checkpoint_dir` are those of `sweep_adalead_nam`.  Not ported
-    yet, and raising NotImplementedError: `mesh` (ROADMAP item 17) and
-    other `algorithm`s or `algorithm_kwargs` (item 16).
+    and `checkpoint_dir` are those of `sweep_adalead_nam`.
+
+    `algorithm` selects the fused explorer ("adalead", "random", "ga",
+    "cmaes", "bo", "gpr_bo", "cbas" or "dbas"; another name raises
+    ValueError) and `algorithm_kwargs` its hyperparameters over the JAX
+    sweep's defaults (`CELL_RUNNERS`).  Not ported yet, and raising
+    NotImplementedError: `mesh` (ROADMAP item 17) and the RL algorithms
+    "dqn", "ppo", "dynappo" and "dynappo_mutative" (item 16).
     """
-    cell_mode = _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec,
-                               cell_mode)
+    cell_mode = _check_options(mesh, algorithm, model, surrogate_spec, cell_mode)
     if model == "surrogate":
         surrogate_spec = surrogate_spec or surrogate_lib.SurrogateSpec()
     device = resolve_device(device)
@@ -464,14 +522,15 @@ def run_landscape_robustness_sweep(
 
         return _run_chunk(
             _grouped_fitness, cell_params, start_tokens[idx], ss_arr[idx], seed_arr[idx], cfg,
-            device, cell_mode,
+            device, cell_mode, cell_runner,
         )
 
+    cell_runner = _cell_runner(algorithm, algorithm_kwargs)
     result = _run_in_chunks(
         len(cells), chunk_size, checkpoint_dir,
         lambda cs: _landscape_sweep_signature(
-            model, surrogate_spec, cfg, cs, landscapes, fitness_fn, land_idx, start_tokens,
-            ss_arr, seed_arr, device,
+            algorithm, algorithm_kwargs, model, surrogate_spec, cfg, cs, landscapes, fitness_fn,
+            land_idx, start_tokens, ss_arr, seed_arr, device,
         ),
         run_chunk,
     )
@@ -520,14 +579,14 @@ def run_robustness_sweep(
     "map" for a surrogate and "vmap" otherwise; scores are identical.  A
     surrogate or "map" sweep goes through `run_landscape_robustness_sweep`;
     the others gather from the stacked score tables.  `chunk_size`,
-    `device` and `checkpoint_dir` are those of `sweep_adalead_nam`.  Not
-    ported yet, and raising NotImplementedError: `mesh` (ROADMAP item 17)
-    and other `algorithm`s or `algorithm_kwargs` (item 16).
+    `device` and `checkpoint_dir` are those of `sweep_adalead_nam`.
+    `algorithm` and `algorithm_kwargs` are those of
+    `run_landscape_robustness_sweep`, through which every algorithm but
+    Adalead with its defaults runs.
     """
-    cell_mode = _check_options(mesh, algorithm, algorithm_kwargs, model, surrogate_spec,
-                               cell_mode)
+    cell_mode = _check_options(mesh, algorithm, model, surrogate_spec, cell_mode)
     device = resolve_device(device)
-    if model == "surrogate" or cell_mode == "map":
+    if model == "surrogate" or cell_mode == "map" or algorithm != "adalead" or algorithm_kwargs:
         landscapes = []
         for name in landscape_names:
             land = tf_binding.TFBinding(name=name, device=device)
@@ -537,8 +596,9 @@ def run_robustness_sweep(
             landscapes, alphabet, starts=starts, signal_strengths=list(signal_strengths),
             seeds=list(seeds), rounds=rounds, sequences_batch_size=sequences_batch_size,
             model_queries_per_batch=model_queries_per_batch, chunk_size=chunk_size,
-            model=model, surrogate_spec=surrogate_spec, checkpoint_dir=checkpoint_dir,
-            cell_mode=cell_mode, device=device,
+            algorithm=algorithm, algorithm_kwargs=algorithm_kwargs, model=model,
+            surrogate_spec=surrogate_spec, checkpoint_dir=checkpoint_dir, cell_mode=cell_mode,
+            device=device,
         )
     alpha: Alphabet = as_alphabet(alphabet)
     names, tables = tf_binding._device_tables(device)

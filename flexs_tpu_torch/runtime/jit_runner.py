@@ -49,6 +49,13 @@ proposes exactly `sequences_batch_size` sequences (highest model score
 first, lowest generation index first among equal scores, as `lax.top_k`
 orders them), where the host explorers keep the reference's B-1
 `argsort(preds)[:-B:-1]` idiom.
+
+The state and steps every fused runner shares (the measured set, the NAM
+cache and query, the counters and their syncs, the top-B proposal and its
+measurement) are `CellRun`, which the Adalead rounds (`_Run`) and the
+other runners of this package (`random_runner`, `ga_runner`,
+`cmaes_runner`, `bo_runner`, `gpr_bo_runner`, `cbas_runner`) subclass;
+`DeviceRunner` is their shared (df, metadata) and run-log wrapper.
 """
 import time
 import warnings
@@ -152,8 +159,13 @@ def _masked_append(buf, rows, n, mask, aux_bufs=(), aux_rows=()):
     return pos
 
 
-class _Run:
-    """State and steps of C cells run in lockstep; `run_adalead_nam_cells` drives it.
+class CellRun:
+    """State and steps every fused runner shares, for C cells in lockstep.
+
+    Each cell's measured set, NAM cache (when the runner keeps one), costs
+    and trained surrogate, with the steps that read them: the NAM query,
+    distances to the cache, the top-B proposal and its measurement.  Each
+    runner subclasses it with its own `round`.
 
     Per-cell counters live twice: as host lists, which drive the loops and
     the draws, and as int64[C] device tensors, which the masks read.  Where
@@ -161,18 +173,25 @@ class _Run:
     only matter for a finished cell are skipped.
     """
 
-    def __init__(self, fitness_fn, fitness_params, start_tokens, cfg, ss, gens):
+    def __init__(self, fitness_fn, fitness_params, start_tokens, cfg, ss, gens,
+                 cache_rows: Optional[int] = None):
+        """The cells' state before round 1.
+
+        `ss` holds the cells' signal strengths, `gens` their generators;
+        `cache_rows` is the number of rows the NAM cache may take in the
+        whole run (None: the runner keeps no cache).
+        """
         self.fitness_fn = fitness_fn
         self.fitness_params = fitness_params
         self.cfg = cfg
         self.gens = gens
         dev = self.dev = start_tokens.device
         B, R = cfg.sequences_batch_size, cfg.rounds
-        budget = cfg.model_queries_per_batch
         self.C, self.L = C, L = start_tokens.shape
+        ss = torch.as_tensor(ss, dtype=torch.float32, device=dev)
         self.cells = torch.arange(C, device=dev)[:, None]
         self.all_rows = torch.ones((C, B), dtype=torch.bool, device=dev)
-        self.bits, self.per_word, words = packed_hamming.packing_spec(
+        self.bits, self.per_word, self.words = packed_hamming.packing_spec(
             L, cfg.alphabet_size
         )
         # NAM alpha = ss ** distance for distances 0..L, one pow per cell so
@@ -181,10 +200,8 @@ class _Run:
         self.alpha = torch.stack([torch.pow(ss[c], dist) for c in range(C)])
 
         measured_cap = 1 + R * B + 1  # +1 trash row
-        cache_cap = 1 + R * (budget + 2 * B) + 1
-        self.gen_cap = budget + 2 * B + 1
 
-        start = start_tokens.long()
+        self.start = start = start_tokens.long()
         self.start_truth = fitness_fn(fitness_params, start[:, None])[:, 0]
 
         self.measured_tokens = torch.zeros((C, measured_cap, L), dtype=torch.long, device=dev)
@@ -192,15 +209,18 @@ class _Run:
         self.measured_tokens[:, 0] = start
         self.measured_truth[:, 0] = self.start_truth
         self.n_measured = torch.ones(C, dtype=torch.long, device=dev)
+        self.n_measured_h = [1] * C
 
-        self.cache_pk = torch.zeros((C, cache_cap, words), dtype=torch.long, device=dev)
-        self.cache_vals = torch.zeros((C, cache_cap), device=dev)
-        # True fitness of every cache row, recorded at insertion so NAM
-        # neighbour lookups never re-run the oracle.
-        self.cache_truth = torch.zeros((C, cache_cap), device=dev)
-        self.cache_pk[:, 0] = self.pack(start)
-        self.cache_vals[:, 0] = self.start_truth
-        self.cache_truth[:, 0] = self.start_truth
+        if cache_rows is not None:
+            cache_cap = 1 + cache_rows + 1
+            self.cache_pk = torch.zeros((C, cache_cap, self.words), dtype=torch.long, device=dev)
+            self.cache_vals = torch.zeros((C, cache_cap), device=dev)
+            # True fitness of every cache row, recorded at insertion so NAM
+            # neighbour lookups never re-run the oracle.
+            self.cache_truth = torch.zeros((C, cache_cap), device=dev)
+            self.cache_pk[:, 0] = self.pack(start)
+            self.cache_vals[:, 0] = self.start_truth
+            self.cache_truth[:, 0] = self.start_truth
         self.n_cache = [1] * C
         self.model_cost = [0] * C
         self.landscape_cost = [1] * C  # the start's measurement
@@ -246,7 +266,12 @@ class _Run:
         filled = torch.arange(n_max, device=self.dev) < self.n_cache_t[:, None]
         return torch.where(filled[:, None, :], dists, self.L + 1)
 
-    def nam_query(self, tokens, mask, live):
+    def novel(self, packed, mask):
+        """bool[C, m]: rows of `packed` in no cache row and equal to no earlier row of `mask`."""
+        novel = self.dists_to_cache(packed).amin(dim=2) > 0
+        return novel & first_occurrence(packed, novel & mask)
+
+    def nam_query(self, tokens, mask, live, charge=None):
         """Score `tokens[mask]` through the model; returns (values, cache positions).
 
         tokens int64[C, m, L]; mask bool[C, m], False in every row of a cell
@@ -254,7 +279,8 @@ class _Run:
         cost); uncached rows run the NAM corruption (1 model + 2 landscape
         costs, or 1 model cost for a perfect model) and are inserted into
         the cache.  With a surrogate every row is a fresh prediction (1
-        model cost), and uncached rows are inserted with it.
+        model cost), and uncached rows are inserted with it.  `charge`
+        (default `mask`) marks the rows that cost a model query.
         """
         C, m = mask.shape
         spec = self.cfg.surrogate
@@ -293,15 +319,111 @@ class _Run:
         # Cached rows' "position" is their existing cache slot.
         pos = torch.where(cached, nearest, pos)
 
-        sums = torch.stack([mask.sum(dim=1), insert.sum(dim=1)])
+        charged = mask if charge is None else charge
+        sums = torch.stack([charged.sum(dim=1), insert.sum(dim=1)])
         self.counts_t += sums
-        n_mask, n_insert = self.fetch(sums)
+        n_charged, n_insert = self.fetch(sums)
         for c in range(C):
-            self.model_cost[c] += n_mask[c]
+            self.model_cost[c] += n_charged[c]
             self.n_cache[c] += n_insert[c]
             if not self.cfg.perfect_model and spec is None:
                 self.landscape_cost[c] += 2 * n_insert[c]
         return values, pos
+
+    def train_surrogate(self):
+        """Retrain each cell's surrogate on its measured set (no-op without one)."""
+        if self.cfg.surrogate is not None:
+            self.surr = surrogate_lib.train(
+                self.cfg.surrogate, self.cfg.alphabet_size, self.surr, self.measured_tokens,
+                self.measured_truth, self.n_measured, self.gens,
+            )
+
+    def top_b(self, gen_tokens, gen_preds, n_gen):
+        """(proposals, scores, pool rows, valid) of each cell's top-B generated by model score.
+
+        A stable sort: equal scores keep generation order, as `lax.top_k`
+        orders them.
+        """
+        B = self.cfg.sequences_batch_size
+        masked_preds = torch.where(
+            torch.arange(gen_preds.shape[1], device=self.dev) < n_gen[:, None], gen_preds,
+            -torch.inf,
+        )
+        ranked, order = torch.sort(masked_preds, dim=1, descending=True, stable=True)
+        top_vals, top_idx = ranked[:, :B], order[:, :B]
+        return gen_tokens[self.cells, top_idx], top_vals, top_idx, torch.isfinite(top_vals)
+
+    def measure(self, proposals, top_vals, valid, slots=None, truth_to_cache=False):
+        """Measure the valid proposals, append them to the measured set; the round's outputs.
+
+        `slots` (the proposals' cache rows) get the measured truth as their
+        cached value (NAM training), and as their recorded truth too with
+        `truth_to_cache`.  Invalid rows write to the trash row, so no slot
+        is written twice.
+        """
+        truth = self.fitness_fn(self.fitness_params, proposals)
+        truth = torch.where(valid, truth, -torch.inf)
+        n_valid = valid.sum(dim=1)
+
+        _masked_append(
+            self.measured_tokens, proposals, self.n_measured, valid,
+            aux_bufs=(self.measured_truth,), aux_rows=(truth,),
+        )
+        self.n_measured += n_valid
+        if slots is not None:
+            slots = torch.where(valid, slots, self.cache_vals.shape[1] - 1)
+            self.cache_vals[self.cells, slots] = truth
+            if truth_to_cache:
+                self.cache_truth[self.cells, slots] = truth
+        for c, n in enumerate(self.fetch(n_valid)):
+            self.landscape_cost[c] += n
+            self.n_measured_h[c] += n
+        return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
+
+
+def first_occurrence(packed, mask):
+    """bool[C, m]: True where a packed row equals no earlier row of `mask` in its cell."""
+    m = packed.shape[1]
+    earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=packed.device), diagonal=-1)
+    eq = (packed.unsqueeze(2) == packed.unsqueeze(1)).all(dim=-1)
+    return ~(eq & earlier & mask.unsqueeze(1)).any(dim=2)
+
+
+def run_cells(run: CellRun) -> RunResult:
+    """Drive `run` through its rounds: the stacked `RunResult` with a leading cell axis."""
+    run_counts["runs"] += 1
+    outs = [run.round() for _ in range(run.cfg.rounds)]
+    tokens, preds, truth, valid, model_cost, landscape_cost = zip(*outs)
+    dev = run.dev
+    return RunResult(
+        proposal_tokens=torch.stack(tokens, dim=1),
+        proposal_preds=torch.stack(preds, dim=1),
+        proposal_truth=torch.stack(truth, dim=1),
+        proposal_valid=torch.stack(valid, dim=1),
+        model_cost=torch.tensor(model_cost, device=dev).T.contiguous(),
+        landscape_cost=torch.tensor(landscape_cost, device=dev).T.contiguous(),
+        start_truth=run.start_truth,
+    )
+
+
+def one_cell(run_cells_fn: Callable, fitness_fn: Callable, fitness_params, start_tokens,
+             cfg, signal_strength: float, generator: torch.Generator, **kwargs) -> RunResult:
+    """A single run through a cell-axis entry point: the C = 1 case, its cell axis dropped."""
+    result = run_cells_fn(
+        cell_axis_oracle(fitness_fn), fitness_params, start_tokens[None], cfg,
+        [signal_strength], [generator], **kwargs,
+    )
+    return RunResult(*(x[0] for x in result))
+
+
+class _Run(CellRun):
+    """Adalead's rounds of C cells in lockstep; `run_adalead_nam_cells` drives it."""
+
+    def __init__(self, fitness_fn, fitness_params, start_tokens, cfg, ss, gens):
+        B, budget = cfg.sequences_batch_size, cfg.model_queries_per_batch
+        super().__init__(fitness_fn, fitness_params, start_tokens, cfg, ss, gens,
+                         cache_rows=cfg.rounds * (budget + 2 * B))
+        self.gen_cap = budget + 2 * B + 1
 
     def novel_mutants(self, tokens, alive):
         """One novel mutant per alive row, bounded vectorized rejection.
@@ -310,12 +432,8 @@ class _Run:
         """
         cfg = self.cfg
         mu_per_res = cfg.mu / self.L
-        B = tokens.shape[1]
         result = tokens
         found = torch.zeros(alive.shape, dtype=torch.bool, device=self.dev)
-        earlier_rows = torch.tril(
-            torch.ones((B, B), dtype=torch.bool, device=self.dev), diagonal=-1
-        )
         for _ in range(cfg.mutant_tries):
             todo = alive & ~found
             live = self.fetch(todo.any(dim=1))
@@ -329,17 +447,15 @@ class _Run:
             cand = torch.where(draw < mu_per_res, rand, tokens)
 
             cand_pk = self.pack(cand)
-            novel = self.dists_to_cache(cand_pk).amin(dim=2) > 0
             # Within-batch dedup: reject a row equal to an earlier accepted
             # candidate or to any already-found result.
+            novel = self.dists_to_cache(cand_pk).amin(dim=2) > 0
             rows_pk = cand_pk.unsqueeze(2)
-            eq_self = (rows_pk == cand_pk.unsqueeze(1)).all(dim=-1)
-            earlier = earlier_rows & eq_self & (todo & novel).unsqueeze(1)
             res_pk = self.pack(result)
             eq_res = (rows_pk == res_pk.unsqueeze(1)).all(dim=-1)
             dup_found = (eq_res & found.unsqueeze(1)).any(dim=2)
 
-            accept = todo & novel & ~earlier.any(dim=2) & ~dup_found
+            accept = todo & novel & first_occurrence(cand_pk, todo & novel) & ~dup_found
             result = torch.where(accept.unsqueeze(2), cand, result)
             found = found | accept
         return result, found
@@ -364,11 +480,7 @@ class _Run:
         C, B, budget = self.C, cfg.sequences_batch_size, cfg.model_queries_per_batch
         round_start = list(self.model_cost)
         round_start_t = self.model_cost_t.clone()
-        if cfg.surrogate is not None:
-            self.surr = surrogate_lib.train(
-                cfg.surrogate, cfg.alphabet_size, self.surr, self.measured_tokens,
-                self.measured_truth, self.n_measured, self.gens,
-            )
+        self.train_surrogate()
 
         # Parent selection (sign-aware threshold + np.resize tiling): row
         # b of a cell's parents is its (b mod n_selected)-th selected row.
@@ -427,34 +539,11 @@ class _Run:
                 n_alive = self.fetch(survive.sum(dim=1))
                 alive, tokens = survive, children
 
-        # Propose each cell's top-B generated by model score (a stable sort:
-        # equal scores keep generation order), measure truth, append.
-        masked_preds = torch.where(
-            torch.arange(self.gen_cap, device=dev) < n_gen[:, None], gen_preds, -torch.inf
-        )
-        ranked, order = torch.sort(masked_preds, dim=1, descending=True, stable=True)
-        top_vals, top_idx = ranked[:, :B], order[:, :B]
-        valid = torch.isfinite(top_vals)
-        proposals = gen_tokens[cells, top_idx]
-        truth = self.fitness_fn(self.fitness_params, proposals)
-        truth = torch.where(valid, truth, -torch.inf)
-        n_valid = valid.sum(dim=1)
-
-        _masked_append(
-            self.measured_tokens, proposals, self.n_measured, valid,
-            aux_bufs=(self.measured_truth,), aux_rows=(truth,),
-        )
-        self.n_measured += n_valid
-        # Refresh cache values of measured proposals with the truth (the
-        # next round's NAM must return truth for measured sequences).
-        # Invalid rows write to the trash row, so no slot is written twice.
-        slots = torch.where(
-            valid, gen_cache_pos[cells, top_idx], self.cache_vals.shape[1] - 1
-        )
-        self.cache_vals[cells, slots] = truth
-        for c, n in enumerate(self.fetch(n_valid)):
-            self.landscape_cost[c] += n
-        return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
+        # Propose each cell's top-B generated by model score, measure truth
+        # and refresh their cache values (the next round's NAM must return
+        # truth for measured sequences).
+        proposals, top_vals, top_idx, valid = self.top_b(gen_tokens, gen_preds, n_gen)
+        return self.measure(proposals, top_vals, valid, slots=gen_cache_pos[cells, top_idx])
 
 
 def run_adalead_nam_cells(
@@ -481,20 +570,8 @@ def run_adalead_nam_cells(
     Returns:
         A `RunResult` with a leading cell axis on every field.
     """
-    dev = start_tokens.device
-    ss = torch.as_tensor(signal_strengths, dtype=torch.float32, device=dev)
-    run_counts["runs"] += 1
-    run = _Run(fitness_fn, fitness_params, start_tokens, cfg, ss, list(generators))
-    outs = [run.round() for _ in range(cfg.rounds)]
-    tokens, preds, truth, valid, model_cost, landscape_cost = zip(*outs)
-    return RunResult(
-        proposal_tokens=torch.stack(tokens, dim=1),
-        proposal_preds=torch.stack(preds, dim=1),
-        proposal_truth=torch.stack(truth, dim=1),
-        proposal_valid=torch.stack(valid, dim=1),
-        model_cost=torch.tensor(model_cost, device=dev).T.contiguous(),
-        landscape_cost=torch.tensor(landscape_cost, device=dev).T.contiguous(),
-        start_truth=run.start_truth,
+    return run_cells(
+        _Run(fitness_fn, fitness_params, start_tokens, cfg, signal_strengths, list(generators))
     )
 
 
@@ -519,19 +596,21 @@ def run_adalead_nam(
     Returns:
         A `RunResult` of stacked per-round tensors.
     """
-    result = run_adalead_nam_cells(
-        cell_axis_oracle(fitness_fn), fitness_params, start_tokens[None], cfg,
-        [signal_strength], [generator],
-    )
-    return RunResult(*(x[0] for x in result))
+    return one_cell(run_adalead_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
+                    signal_strength, generator)
 
 
-class DeviceAdaleadNAM:
-    """(df, metadata) wrapper over `run_adalead_nam`.
+class DeviceRunner:
+    """(df, metadata) wrapper the fused runners share.
 
     Produces the same measured-data schema and log format as
-    `Explorer.run` (reference explorer.py:115-184).
+    `Explorer.run` (reference explorer.py:115-184).  A subclass sets
+    `single_run` (its one-cell entry point), `label`, and in its
+    constructor `name` and the entry point's keywords `run_kwargs`.
     """
+
+    label = "device"
+    run_kwargs: dict = {}
 
     def __init__(
         self,
@@ -541,38 +620,32 @@ class DeviceAdaleadNAM:
         sequences_batch_size: int,
         model_queries_per_batch: int,
         starting_sequence: str,
-        signal_strength: float = 0.9,
-        threshold: float = 0.05,
-        mu: int = 1,
-        recomb_rate: float = 0.0,
-        rho: int = 0,
-        seed: int = 0,
-        model: str = "nam",
-        surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
-        log_file: Optional[str] = None,
-        device=None,
+        signal_strength: float,
+        seed: int,
+        model: str,
+        surrogate_spec: Optional[surrogate_lib.SurrogateSpec],
+        log_file: Optional[str],
+        device,
+        default_spec: surrogate_lib.SurrogateSpec = surrogate_lib.SurrogateSpec(),
+        **cfg_fields,
     ):
-        """Create a fused runner for `landscape` on `device` (default "cuda").
+        """Check the options and build the run's configuration on `device` (default "cuda").
 
         `landscape` must expose `device_fitness()` and live on the same
-        device.  `model` selects the fused surrogate: "nam"
-        (NoisyAbstractModel at `signal_strength`), "perfect"
-        (LandscapeAsModel semantics: predictions equal truth, model queries
-        don't charge the landscape) or "surrogate" (a net retrained on the
-        measured set every round, configured by `surrogate_spec`; default
-        the paper's CNN_hidden_size_100_num_filters_32).
+        device.  `model` selects the fused model: "nam" (NoisyAbstractModel
+        at `signal_strength`), "perfect" (LandscapeAsModel semantics:
+        predictions equal truth, model queries don't charge the landscape)
+        or "surrogate" (a net retrained on the measured set every round,
+        configured by `surrogate_spec`, default `default_spec`).
+        `cfg_fields` are further `AdaleadConfig` fields.
         """
         if model not in ("nam", "perfect", "surrogate"):
             raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
         if model == "surrogate":
-            surrogate_spec = surrogate_spec or surrogate_lib.SurrogateSpec()
+            surrogate_spec = surrogate_spec or default_spec
             surrogate_lib.check_spec(surrogate_spec)
         if rounds < 1:
             raise ValueError("rounds must be >= 1 for the fused runner")
-        if model_queries_per_batch < sequences_batch_size:
-            warnings.warn(
-                "`model_queries_per_batch` should be >= `sequences_batch_size`"
-            )
         self.device = resolve_device(device)
         landscape_device = getattr(landscape, "device", self.device)
         if landscape_device != self.device:
@@ -585,7 +658,6 @@ class DeviceAdaleadNAM:
         self.signal_strength = 1.0 if model != "nam" else signal_strength
         self.seed = seed
         self.log_file = log_file
-        self.name = f"DeviceAdalead_mu={mu}_threshold={threshold}"
         if model == "perfect":
             self.model_name = f"LandscapeAsModel={landscape.name}"
         elif model == "surrogate":
@@ -598,14 +670,20 @@ class DeviceAdaleadNAM:
             sequences_batch_size=sequences_batch_size,
             model_queries_per_batch=model_queries_per_batch,
             alphabet_size=len(self.alphabet),
-            threshold=threshold,
-            mu=mu,
-            recomb_rate=recomb_rate,
-            rho=rho,
             perfect_model=(model == "perfect"),
             surrogate=surrogate_spec if model == "surrogate" else None,
+            **cfg_fields,
         )
         self._fitness_fn, self._fitness_params = landscape.device_fitness()
+
+    def _run_one(self, start_tokens: torch.Tensor, generator: torch.Generator) -> RunResult:
+        return self.single_run(
+            self._fitness_fn, self._fitness_params, start_tokens, self.cfg,
+            float(self.signal_strength), generator, **self.run_kwargs,
+        )
+
+    def _check_result(self, result: RunResult) -> None:
+        """Raise for a degenerate run (the base accepts any)."""
 
     def run(self, verbose: bool = True) -> Tuple[pd.DataFrame, dict]:
         """Execute the run and return (sequences_data, metadata)."""
@@ -616,22 +694,9 @@ class DeviceAdaleadNAM:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed)
 
-        result = run_adalead_nam(
-            self._fitness_fn,
-            self._fitness_params,
-            start_tokens,
-            self.cfg,
-            float(self.signal_strength),
-            generator,
-        )
+        result = self._run_one(start_tokens, generator)
         result = RunResult(*(x.cpu().numpy() for x in result))
-        if not result.proposal_valid.any():
-            # Every round proposed nothing: the reference raises ValueError
-            # mid-run in this degenerate-budget case (adalead.py:165-170).
-            raise ValueError(
-                "No sequences generated in any round. If `model_queries_"
-                "per_batch` is very small, increase it."
-            )
+        self._check_result(result)
 
         # Sync cost accounting into the landscape object.
         self.landscape.add_cost(int(result.landscape_cost[-1]))
@@ -672,7 +737,57 @@ class DeviceAdaleadNAM:
             write_run_log(self.log_file, metadata, df)
         if verbose:
             print(
-                f"device run: top {df['true_score'].max():.4f}, "
+                f"{self.label} run: top {df['true_score'].max():.4f}, "
                 f"time {time.time() - start_time:.3f}s"
             )
         return df, metadata
+
+
+class DeviceAdaleadNAM(DeviceRunner):
+    """(df, metadata) wrapper over `run_adalead_nam`."""
+
+    single_run = staticmethod(run_adalead_nam)
+
+    def __init__(
+        self,
+        landscape,
+        alphabet,
+        rounds: int,
+        sequences_batch_size: int,
+        model_queries_per_batch: int,
+        starting_sequence: str,
+        signal_strength: float = 0.9,
+        threshold: float = 0.05,
+        mu: int = 1,
+        recomb_rate: float = 0.0,
+        rho: int = 0,
+        seed: int = 0,
+        model: str = "nam",
+        surrogate_spec: Optional[surrogate_lib.SurrogateSpec] = None,
+        log_file: Optional[str] = None,
+        device=None,
+    ):
+        """Create a fused runner for `landscape` on `device` (default "cuda").
+
+        `model` is "nam", "perfect" or "surrogate" (`DeviceRunner`; the
+        default surrogate is the paper's CNN_hidden_size_100_num_filters_32).
+        """
+        super().__init__(
+            landscape, alphabet, rounds, sequences_batch_size, model_queries_per_batch,
+            starting_sequence, signal_strength, seed, model, surrogate_spec, log_file, device,
+            threshold=threshold, mu=mu, recomb_rate=recomb_rate, rho=rho,
+        )
+        if model_queries_per_batch < sequences_batch_size:
+            warnings.warn(
+                "`model_queries_per_batch` should be >= `sequences_batch_size`"
+            )
+        self.name = f"DeviceAdalead_mu={mu}_threshold={threshold}"
+
+    def _check_result(self, result):
+        if not result.proposal_valid.any():
+            # Every round proposed nothing: the reference raises ValueError
+            # mid-run in this degenerate-budget case (adalead.py:165-170).
+            raise ValueError(
+                "No sequences generated in any round. If `model_queries_"
+                "per_batch` is very small, increase it."
+            )

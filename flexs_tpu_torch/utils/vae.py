@@ -112,47 +112,26 @@ def pwm_to_boltzmann_weights(prob_weight_matrix: np.ndarray, temp: float):
     return e / e.sum(axis=0, keepdims=True)
 
 
-class VAE:
-    """VAE wrapper exposing the train/generate/log-prob interface for CbAS."""
+class VAETrainer:
+    """A `VAEModule` with its clipped-Adam state and its weighted training step.
 
-    def __init__(
-        self,
-        seq_length: int,
-        alphabet: str,
-        batch_size: int = 10,
-        latent_dim: int = 2,
-        intermediate_dim: int = 250,
-        epochs: int = 10,
-        epsilon_std: float = 1.0,
-        beta: float = 1,
-        validation_split: float = 0.2,
-        verbose: bool = True,
-        seed: int = 0,
-        device=None,
-    ):
-        """Create the VAE on `device` (default "cuda"; pass "cpu" to run on the CPU)."""
-        self.batch_size = batch_size
-        self.latent_dim = latent_dim
+    The host `VAE` is one; the fused CbAS runner keeps one per cell.  Its
+    weights are drawn from `generator`, on the generator's device.  On the
+    card each training step replays one CUDA graph (`cuda_graph`).
+    """
+
+    def __init__(self, original_dim: int, intermediate_dim: int, latent_dim: int,
+                 batch_size: int, beta: float, generator: torch.Generator):
+        self.original_dim = original_dim
         self.intermediate_dim = intermediate_dim
-        self.epochs = epochs
-        self.epsilon_std = epsilon_std
+        self.latent_dim = latent_dim
+        self.batch_size = batch_size
         self.beta = beta
-        self.validation_split = validation_split
-        self.verbose = verbose
-        self.name = f"VAE_latent_dim={latent_dim}_intermediate_dim={intermediate_dim}"
-
-        self.alphabet = as_alphabet(alphabet)
-        self.seq_length = seq_length
-        self.original_dim = len(self.alphabet) * seq_length
-
-        self.device = resolve_device(device)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(seed)
-        self._rng = np.random.default_rng(seed)
-        self.module = VAEModule(self.original_dim, intermediate_dim, latent_dim, self._generator)
+        self.device = generator.device
+        self._generator = generator
+        self.module = VAEModule(original_dim, intermediate_dim, latent_dim, generator)
         self._opt_state = adam_init(flatten_parameters(self.module)[None])
         self._loss_sum = torch.zeros((), device=self.device)
-        # On the card each training step replays one CUDA graph.
         self.cuda_graph = self.device.type == "cuda"
         self._graph = None
 
@@ -166,11 +145,6 @@ class VAE:
         self.module.load_state_dict(weights)
 
     # -- training -----------------------------------------------------------
-    def _one_hot(self, samples) -> np.ndarray:
-        tokens = self.alphabet.encode(list(samples))
-        eye = np.eye(len(self.alphabet), dtype=np.float32)
-        return eye[tokens].reshape(len(tokens), -1)
-
     def loss(self, xb, wb, enc_keep, dec_keep, eps):
         """Weighted training loss of one minibatch; moves the BatchNorm statistics."""
         z_mean, z_log_var = self.module.encode(xb, train=True, keep=enc_keep)
@@ -228,15 +202,12 @@ class VAE:
             self._graph = (graph, static)
         return self._graph
 
-    def _epoch(self, x: torch.Tensor, w: torch.Tensor) -> float:
-        """One epoch of shuffled full minibatches; the epoch's draws are made at once."""
-        g, dev = self._generator, self.device
-        bs, inter = self.batch_size, self.intermediate_dim
-        num_batches = x.shape[0] // bs
-        batches = torch.randperm(x.shape[0], generator=g, device=dev).view(num_batches, bs)
-        enc_keep = torch.rand((num_batches, bs, inter), generator=g, device=dev) < DROPOUT_KEEP
-        dec_keep = torch.rand((num_batches, bs, inter), generator=g, device=dev) < DROPOUT_KEEP
-        eps = torch.randn((num_batches, bs, self.latent_dim), generator=g, device=dev)
+    def steps(self, x, w, batches, enc_keep, dec_keep, eps) -> torch.Tensor:
+        """Steps on minibatches `x[batches[s]]`, `w[batches[s]]` in order; their loss sum.
+
+        `enc_keep`, `dec_keep` and `eps` hold each step's dropout masks and
+        latent noise along their first axis.
+        """
         self._loss_sum.zero_()
         if self.cuda_graph:
             graph, (xb, wb, enc, dec, z) = self._graphed_step()
@@ -250,7 +221,58 @@ class VAE:
         else:
             for s, idx in enumerate(batches):
                 self.step(x[idx], w[idx], enc_keep[s], dec_keep[s], eps[s])
-        return float(self._loss_sum / num_batches)
+        return self._loss_sum
+
+
+class VAE(VAETrainer):
+    """VAE wrapper exposing the train/generate/log-prob interface for CbAS."""
+
+    def __init__(
+        self,
+        seq_length: int,
+        alphabet: str,
+        batch_size: int = 10,
+        latent_dim: int = 2,
+        intermediate_dim: int = 250,
+        epochs: int = 10,
+        epsilon_std: float = 1.0,
+        beta: float = 1,
+        validation_split: float = 0.2,
+        verbose: bool = True,
+        seed: int = 0,
+        device=None,
+    ):
+        """Create the VAE on `device` (default "cuda"; pass "cpu" to run on the CPU)."""
+        self.epochs = epochs
+        self.epsilon_std = epsilon_std
+        self.validation_split = validation_split
+        self.verbose = verbose
+        self.name = f"VAE_latent_dim={latent_dim}_intermediate_dim={intermediate_dim}"
+
+        self.alphabet = as_alphabet(alphabet)
+        self.seq_length = seq_length
+
+        generator = torch.Generator(device=resolve_device(device))
+        generator.manual_seed(seed)
+        self._rng = np.random.default_rng(seed)
+        super().__init__(len(self.alphabet) * seq_length, intermediate_dim, latent_dim,
+                         batch_size, beta, generator)
+
+    def _one_hot(self, samples) -> np.ndarray:
+        tokens = self.alphabet.encode(list(samples))
+        eye = np.eye(len(self.alphabet), dtype=np.float32)
+        return eye[tokens].reshape(len(tokens), -1)
+
+    def _epoch(self, x: torch.Tensor, w: torch.Tensor) -> float:
+        """One epoch of shuffled full minibatches; the epoch's draws are made at once."""
+        g, dev = self._generator, self.device
+        bs, inter = self.batch_size, self.intermediate_dim
+        num_batches = x.shape[0] // bs
+        batches = torch.randperm(x.shape[0], generator=g, device=dev).view(num_batches, bs)
+        enc_keep = torch.rand((num_batches, bs, inter), generator=g, device=dev) < DROPOUT_KEEP
+        dec_keep = torch.rand((num_batches, bs, inter), generator=g, device=dev) < DROPOUT_KEEP
+        eps = torch.randn((num_batches, bs, self.latent_dim), generator=g, device=dev)
+        return float(self.steps(x, w, batches, enc_keep, dec_keep, eps) / num_batches)
 
     def train_model(self, samples, weights):
         """Train on weighted samples with early stopping (patience 3)."""

@@ -47,7 +47,9 @@ def test_port_sources_are_found():
                    "baselines/explorers/ppo.py", "baselines/explorers/dyna_ppo.py",
                    "baselines/explorers/environments/__init__.py",
                    "baselines/explorers/environments/ppo.py",
-                   "baselines/explorers/environments/dyna_ppo.py"):
+                   "baselines/explorers/environments/dyna_ppo.py",
+                   "runtime/random_runner.py", "runtime/ga_runner.py", "runtime/cmaes_runner.py",
+                   "runtime/bo_runner.py", "runtime/gpr_bo_runner.py", "runtime/cbas_runner.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -72,7 +74,10 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.ops.rna_fold, flexs_tpu_torch.landscapes.bert_gfp, "
         "flexs_tpu_torch.profile_fold, flexs_tpu_torch.rl, flexs_tpu_torch.baselines.explorers, "
         "flexs_tpu_torch.baselines.explorers.environments, flexs_tpu_torch.utils.vae, "
-        "flexs_tpu_torch.ops.cmaes; "
+        "flexs_tpu_torch.ops.cmaes, flexs_tpu_torch.runtime.random_runner, "
+        "flexs_tpu_torch.runtime.ga_runner, flexs_tpu_torch.runtime.cmaes_runner, "
+        "flexs_tpu_torch.runtime.bo_runner, flexs_tpu_torch.runtime.gpr_bo_runner, "
+        "flexs_tpu_torch.runtime.cbas_runner; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

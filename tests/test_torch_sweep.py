@@ -16,7 +16,7 @@ import torch
 import flexs_tpu_torch as flexs
 from flexs_tpu_torch.landscapes import tf_binding
 from flexs_tpu_torch.parallel import sweep
-from flexs_tpu_torch.runtime import DeviceAdaleadNAM
+from flexs_tpu_torch.runtime import DeviceAdaleadNAM, VAEConfig
 from flexs_tpu_torch.runtime.jit_runner import AdaleadConfig
 
 
@@ -218,8 +218,8 @@ def test_checkpoint_resume(tmp_path):
     "kw,item",
     [
         ({"mesh": object()}, "item 17"),
-        ({"algorithm": "ga"}, "item 16"),
-        ({"algorithm_kwargs": {"mu": 2}}, "item 16"),
+        ({"algorithm": "dqn"}, "item 16"),
+        ({"algorithm": "ppo", "algorithm_kwargs": {"train_epochs": 2}}, "item 16"),
     ],
 )
 def test_unported_options_raise(kw, item):
@@ -241,3 +241,100 @@ def test_default_device_without_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep.run_robustness_sweep(**GRID)
+
+
+# Each ported family at a tiny size, its hyperparameters cut to fit.
+SMALL_ALGORITHMS = {
+    "random": {"batch": 8},
+    "ga": {"population_size": 10, "children_proportion": 0.5},
+    "cmaes": {"population_size": 8},
+    "bo": {"num_chains": 3},
+    "gpr_bo": {},
+    "cbas": {"cycle_batch_size": 20, "vae_cfg": VAEConfig(intermediate_dim=32, epochs=3)},
+    "dbas": {"cycle_batch_size": 20, "vae_cfg": VAEConfig(intermediate_dim=32, epochs=3)},
+}
+FAMILY_RUNNERS = {
+    "random": "DeviceRandomNAM", "ga": "DeviceGeneticAlgorithmNAM", "cmaes": "DeviceCMAESNAM",
+    "bo": "DeviceBONAM", "gpr_bo": "DeviceGPRBONAM", "cbas": "DeviceCbASNAM",
+    "dbas": "DeviceCbASNAM",
+}
+SMALL_RUN = dict(rounds=2, sequences_batch_size=6, model_queries_per_batch=40)
+
+
+@pytest.mark.parametrize("algorithm", list(SMALL_ALGORITHMS))
+def test_family_sweep_cell_equals_standalone_run(algorithm):
+    """A 4-cell lockstep chunk over two landscapes: its last cell equals the standalone run."""
+    from flexs_tpu_torch import runtime
+
+    names = ["SIX6_REF_R1", "ARX_L343Q_R1"]
+    lands = [flexs.landscapes.TFBinding(name=n, device="cpu") for n in names]
+    kw = SMALL_ALGORITHMS[algorithm]
+    df = sweep.run_landscape_robustness_sweep(
+        lands, flexs.DNAA, starts=tf_binding.STARTS[:2], signal_strengths=[0.9],
+        seeds=[2], algorithm=algorithm, algorithm_kwargs=kw, device="cpu", **SMALL_RUN)
+    assert len(df) == 4 and (df["max_fitness"] >= df["start_fitness"]).all()
+    land = flexs.landscapes.TFBinding(name=names[1], device="cpu")
+    extra = {"algo": algorithm} if algorithm in ("cbas", "dbas") else {}
+    single, _ = getattr(runtime, FAMILY_RUNNERS[algorithm])(
+        land, flexs.DNAA, starting_sequence=tf_binding.STARTS[1], signal_strength=0.9,
+        seed=2, device="cpu", **SMALL_RUN, **kw, **extra).run(verbose=False)
+    row = df.iloc[-1]
+    assert row["max_fitness"] == single["true_score"].max()
+    assert row["model_cost"] == single["model_cost"].iloc[-1]
+    assert row["landscape_cost"] == land.cost
+
+
+def test_robustness_sweep_routes_other_algorithms():
+    """`run_robustness_sweep(algorithm="ga")` equals the landscape sweep of the same grid."""
+    grid = dict(starts=tf_binding.STARTS[:1], signal_strengths=[0.5, 0.9], seeds=[0, 1],
+                algorithm="ga", algorithm_kwargs=SMALL_ALGORITHMS["ga"], device="cpu",
+                **SMALL_RUN)
+    got = sweep.run_robustness_sweep(["SIX6_REF_R1"], **grid)
+    land = flexs.landscapes.TFBinding(name="SIX6_REF_R1", device="cpu")
+    land.name = "SIX6_REF_R1"
+    want = sweep.run_landscape_robustness_sweep([land], flexs.DNAA, **grid)
+    pd.testing.assert_frame_equal(got, want)
+
+
+def test_gpr_bo_perfect_sweep_equals_jax():
+    """No randomness reaches a perfect GPR_BO run: the summary equals the JAX sweep's."""
+    import flexs_tpu
+    import flexs_tpu.parallel.sweep as jax_sweep
+
+    grid = dict(starts=tf_binding.STARTS[:2], signal_strengths=[1.0], seeds=[0, 1],
+                algorithm="gpr_bo", model="perfect", **SMALL_RUN)
+    names = ["SIX6_REF_R1", "ARX_L343Q_R1"]
+    lands = [flexs.landscapes.TFBinding(name=n, device="cpu") for n in names]
+    jax_lands = [flexs_tpu.landscapes.TFBinding(
+        **flexs_tpu.landscapes.tf_binding.registry()[n]["params"]) for n in names]
+    for ours, theirs in zip(lands, jax_lands):
+        ours.name = theirs.name = "TF_Binding"
+    got = sweep.run_landscape_robustness_sweep(lands, flexs.DNAA, device="cpu", **grid)
+    want = jax_sweep.run_landscape_robustness_sweep(jax_lands, flexs.DNAA, **grid)
+    pd.testing.assert_frame_equal(got, want)
+
+
+def test_checkpoint_signature_depends_on_algorithm_and_kwargs(tmp_path):
+    """Chunks of an Adalead sweep, or of a GA sweep with other kwargs, are refused."""
+    land = flexs.landscapes.TFBinding(name="SIX6_REF_R1", device="cpu")
+    grid = dict(starts=tf_binding.STARTS[:2], signal_strengths=[0.9], seeds=[0],
+                chunk_size=1, device="cpu", **SMALL_RUN)
+    ga = dict(algorithm="ga", algorithm_kwargs=SMALL_ALGORITHMS["ga"])
+    adalead_dir, ga_dir = str(tmp_path / "adalead"), str(tmp_path / "ga")
+    sweep.run_landscape_robustness_sweep([land], flexs.DNAA, checkpoint_dir=adalead_dir, **grid)
+    with pytest.raises(ValueError, match="DIFFERENT sweep"):
+        sweep.run_landscape_robustness_sweep([land], flexs.DNAA, checkpoint_dir=adalead_dir,
+                                             **grid, **ga)
+    first = sweep.run_landscape_robustness_sweep([land], flexs.DNAA, checkpoint_dir=ga_dir,
+                                                 **grid, **ga)
+    pd.testing.assert_frame_equal(first, sweep.run_landscape_robustness_sweep(
+        [land], flexs.DNAA, checkpoint_dir=ga_dir, **grid, **ga))
+    other = dict(algorithm="ga", algorithm_kwargs={**SMALL_ALGORITHMS["ga"], "beta": 0.1})
+    with pytest.raises(ValueError, match="DIFFERENT sweep"):
+        sweep.run_landscape_robustness_sweep([land], flexs.DNAA, checkpoint_dir=ga_dir,
+                                             **grid, **other)
+
+
+def test_unknown_algorithm_raises():
+    with pytest.raises(ValueError, match="unknown fused algorithm"):
+        _sweep(algorithm="simulated_annealing")
