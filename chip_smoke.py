@@ -165,7 +165,37 @@ Phases (any failed check raises, and the script exits nonzero):
         rounds), and run_landscape_robustness_sweep(algorithm="bo") over
         L100_RNA1's starts 1-3: first and last cells equal standalone
         runs; wall, s per cell, sequences scored/s;
-  13. print the wall of each phase, one JSON line describing each kernel,
+  13. the fused RL runners (a and c launch no duplex build; b and d's DQN
+     sweep launch the main path's kernel through the oracle, and no
+     row-cost build may launch):
+     a. the paper's fused RL rows on 3MSI (scripts/run_paper_table.py:
+        175-240): DeviceDQNNAM, DevicePPONAM, DeviceDynaPPONAM
+        (env_batch_size=16) and DeviceDynaPPOMutativeNAM over a perfect
+        model of RosettaFolding 3msi, start ed_3_wt, seed 0, 100 x 2000,
+        cut in rounds (RL_RUN_ROUNDS): run invariants, true_score ==
+        get_fitness exactly on each round's rows; wall, queries/s, host
+        syncs (DynaPPO's per round: none inside a round) and top beside
+        phase 11b's host top and the reference's DynaPPO row (0.934, best
+        0.972); DynaPPO's CUDA-graph episodes equal to eager ones bitwise
+        on a 1-round run; PPO's update on the card against the same update
+        on the CPU from the card's inputs (parameters within 1e-4 of the
+        update's size, statistics within 1e-5 relative);
+     b. DevicePPONAM (2 rounds) and DeviceDynaPPONAM (1 round) over NAM 0.9
+        on L100_RNA1 from start 1, 100 x 2000, each twice: identical
+        frames; duplex launches, top and the last round's mean true_score
+        pinned (6,531, 0.579332, 0.442182; 134, 0.579332, 0.236061);
+     c. the density on the card against the CPU's, on a seeded 3MSI-width
+        pool, under both metrics (distances bitwise, the weighted sums
+        within 1e-6 relative: the card's dot product adds in another
+        order); one DeviceDynaPPOMutativeNAM round with
+        density_metric="edit" on 3MSI beside a Hamming one;
+     d. run_robustness_sweep(algorithm="dynappo") in one lockstep chunk of
+        16 cells (4 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1}) and
+        run_landscape_robustness_sweep(algorithm="dqn") over L100_RNA1's
+        starts 1-3, 2 rounds, duplex launches pinned (4,003): first and
+        last cells equal standalone runs exactly; wall, s per cell,
+        sequences scored/s;
+  14. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -323,6 +353,40 @@ FUSED_L100_PINS = {"ga": (2949, 0.632479), "bo": (111, 0.584328)}
 FUSED_SWEEP_LANDSCAPES, FUSED_SWEEP_SS, FUSED_SWEEP_SEEDS = 4, (0.5, 0.9), (0, 1)
 FUSED_GA_SWEEP_ROUNDS = 2
 FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
+# Phase 13: the fused RL runners.  (a) The paper's fused RL rows on 3MSI
+# (scripts/run_paper_table.py:175-240): a perfect model of RosettaFolding
+# 3msi, start ed_3_wt, seed 0, 100 x 2000.  DQN, PPO and the mutative
+# runner are cut in rounds to keep the phase near 150 s: their step loops
+# are host-bound (a DQN or PPO step per model query, 2,000 a round), and
+# phase 13 took 239 s in the whole script at 2, 2, 4 and 5 rounds before
+# DynaPPO's episodes became CUDA graphs (PERF.md, Cells).  Tops are
+# readings beside phase 11b's host runs and the reference's DynaPPO row.
+RL_RUN = dict(sequences_batch_size=100, model_queries_per_batch=2000)
+RL_RUN_ROUNDS = {"dqn": 1, "ppo": 1, "dynappo": 10, "dynappo_mutative": 3}
+REFERENCE_DYNAPPO = {"mean": 0.934, "best": 0.972}
+# The PPO update of 13a's 3MSI run on the card vs the same update on the CPU
+# from the card's inputs: the parameters' distance, relative to the
+# update's own size (10 Adam steps; a gradient entry near 0 may take
+# either sign on the two devices, so no elementwise bound), and the
+# observation statistics (Welford sums in another order).
+PPO_TRAIN_RTOL, PPO_STATS_RTOL = 1e-4, 1e-5
+# (b) PPO and DynaPPO over NAM 0.9 on L100_RNA1 from start 1, 100 x 2000,
+# cut to 2 rounds and 1; duplex launches, top and the last round's mean
+# true_score pinned from their first run on an H100.  No proposal beats
+# the start (0.579332) in these rounds, so the top pins nothing; the last
+# round's mean reads proposals of a policy after PPO updates (PPO's one
+# update a round, DynaPPO's one a batch).
+RL_L100_ROUNDS = {"ppo": 2, "dynappo": 1}
+RL_L100_PINS = {"ppo": (6531, 0.579332, 0.442182), "dynappo": (134, 0.579332, 0.236061)}
+# (c) The density on the card vs the CPU: a seeded pool at 3MSI's width.
+DENSITY_POOL, DENSITY_QUERIES, DENSITY_RTOL = 2048, 16, 1e-6
+# (d) Sweeps: DynaPPO over 4 TF-Bind landscapes x ss {0.5, 0.9} x seeds
+# {0, 1} in one lockstep chunk of 16 cells, DQN over L100_RNA1's starts
+# 1-3, each cut in rounds.  DQN runs 2 so that its walk, replay ring and
+# schedule carry across a round; its duplex launches are pinned from its
+# first run on an H100.
+RL_SWEEP_ROUNDS = {"dynappo": 2, "dqn": 2}
+RL_DQN_SWEEP_LAUNCHES = 4003
 
 
 def card_line() -> str:
@@ -1639,6 +1703,16 @@ def fused_run(runner, landscape):
                 "model_cost": int(df["model_cost"].iloc[-1])}
 
 
+def same_as_alone(row, land, cls, alphabet, run) -> None:
+    """A sweep's summary row equals the standalone run of `cls` with the row's cell."""
+    cost = land.cost
+    single, _ = cls(land, alphabet, starting_sequence=row["start"], seed=int(row["seed"]),
+                    signal_strength=float(row["signal_strength"]), **run).run(verbose=False)
+    assert row["max_fitness"] == single["true_score"].max(), row
+    assert row["model_cost"] == single["model_cost"].iloc[-1], row
+    assert row["landscape_cost"] == land.cost - cost, row
+
+
 def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     """Phase 12 (a-d): the fused runners of the non-RL explorers on the card."""
     import pandas as pd
@@ -1772,15 +1846,6 @@ def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     assert len(ga_sweep) == len(names) * len(FUSED_SWEEP_SS) * len(FUSED_SWEEP_SEEDS)
     assert (ga_sweep["max_fitness"] >= ga_sweep["start_fitness"]).all()
 
-    def same_as_alone(row, land, cls, alphabet, run):
-        cost = land.cost
-        single, _ = cls(land, alphabet, starting_sequence=row["start"], seed=int(row["seed"]),
-                        signal_strength=float(row["signal_strength"]), **run
-                        ).run(verbose=False)
-        assert row["max_fitness"] == single["true_score"].max(), row
-        assert row["model_cost"] == single["model_cost"].iloc[-1], row
-        assert row["landscape_cost"] == land.cost - cost, row
-
     for row in (ga_sweep.iloc[0], ga_sweep.iloc[-1]):
         same_as_alone(row, tf_binding.TFBinding(name=row["landscape"]),
                       runtime.DeviceGeneticAlgorithmNAM, flexs.DNAA, ga_run)
@@ -1811,6 +1876,312 @@ def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     walls = step_walls(steps)
     print(f"phase 12 step walls (s): {json.dumps(walls)}")
     return {"paper_3msi": paper, "gpr_bo": gpr, "l100": l100, "sweeps": sweeps,
+            "step_walls_s": walls}
+
+
+def density_card_vs_cpu(flexs, start: str) -> dict:
+    """The DynaPPO densities on the card vs the CPU, on a seeded pool at 3MSI's width.
+
+    Distances must be bitwise equal; the fitness-weighted sums within
+    DENSITY_RTOL relative (the card's dot product adds in another order).
+    """
+    from flexs_tpu_torch.ops import packed_hamming
+    from flexs_tpu_torch.ops.hamming import banded_edit_distance_matrix
+    from flexs_tpu_torch.runtime import dyna_ppo_runner as dyna
+
+    rng = np.random.default_rng(SEED)
+    base = flexs.Alphabet(flexs.AAS).encode_one(start)
+    pool = np.repeat(base[None], DENSITY_POOL, axis=0)
+    for row in pool:
+        pos = rng.choice(len(base), rng.integers(0, 5), replace=False)
+        row[pos] = rng.integers(0, 20, len(pos))
+    pool[1] = np.roll(base, 1)  # a block shift: Hamming far, Levenshtein 2
+    queries = pool[rng.choice(DENSITY_POOL, DENSITY_QUERIES, replace=False)]
+    queries[0] = base
+    fit = rng.random(DENSITY_POOL).astype(np.float32)
+    n_den = DENSITY_POOL - 5
+    bits, per_word, _ = packed_hamming.packing_spec(len(base), 20)
+    out = {}
+    for metric in ("hamming", "edit"):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            q, p = torch.as_tensor(queries, device=dev), torch.as_tensor(pool, device=dev)
+            f, n = torch.as_tensor(fit, device=dev), torch.tensor(n_den, device=dev)
+            if metric == "edit":
+                d = banded_edit_distance_matrix(q, p, band=2)
+                dens = dyna._edit_density(q, p, f, n)
+            else:
+                qp, pp = packed_hamming.pack_tokens(q, 20), packed_hamming.pack_tokens(p, 20)
+                d = packed_hamming.packed_hamming_matrix(qp, pp, bits, per_word)
+                dens = dyna._hamming_density(qp, pp, f, n, bits, per_word)
+            got[dev] = (d.cpu(), dens.cpu())
+        assert torch.equal(got["cuda"][0], got["cpu"][0]), f"{metric} distances differ"
+        card, cpu = got["cuda"][1], got["cpu"][1]
+        assert (cpu > 0).sum() >= DENSITY_QUERIES // 2, cpu
+        rel = float(((card - cpu).abs() / cpu.abs().clamp(min=1e-30)).max())
+        assert rel <= DENSITY_RTOL, (metric, rel)
+        out[metric] = {"max_rel_diff": rel, "bitwise": bool(torch.equal(card, cpu)),
+                       "nonzero": int((cpu > 0).sum())}
+    return out
+
+
+@contextlib.contextmanager
+def timed_dqn_bursts():
+    """CUDA-event spans of every DQN training burst run inside the block (a list of pairs)."""
+    from flexs_tpu_torch.runtime import dqn_runner
+
+    spans = []
+    burst = dqn_runner._DQNRun.burst
+
+    def timed_burst(self, gens):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        burst(self, gens)
+        end.record()
+        spans.append((start, end))
+
+    dqn_runner._DQNRun.burst = timed_burst
+    try:
+        yield spans
+    finally:
+        dqn_runner._DQNRun.burst = burst
+
+
+@contextlib.contextmanager
+def captured_ppo_train():
+    """The first fused PPO update run inside the block: its inputs and outputs on the CPU.
+
+    Yields a dict that gets `run` (the card run's settings), `before` and
+    `after` (each cell's flat parameters, Adam state and statistics) and
+    `args` (the trajectory `_PPORun.train` took).
+    """
+    from flexs_tpu_torch.runtime import ppo_runner
+
+    seen = {}
+    train = ppo_runner._PPORun.train
+
+    def state(run):
+        return [[x.detach().cpu().clone() for x in opt] for opt in run.opt_states], \
+            [x.cpu().clone() for x in run.stats]
+
+    def capturing_train(self, *args):
+        if seen:
+            return train(self, *args)
+        seen["before"] = state(self)
+        seen["args"] = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+                        else a.cpu() if torch.is_tensor(a) else list(a) for a in args]
+        seen["run"] = dict(C=self.C, traj_cap=self.traj_cap, ppo_cfg=self.ppo_cfg,
+                           cfg=self.cfg, dim=self.dim)
+        train(self, *args)
+        seen["after"] = state(self)
+
+    ppo_runner._PPORun.train = capturing_train
+    try:
+        yield seen
+    finally:
+        ppo_runner._PPORun.train = train
+
+
+def ppo_train_card_vs_cpu(seen: dict) -> dict:
+    """Run the captured PPO update again on the CPU and hold the card's result to it."""
+    import types
+
+    from flexs_tpu_torch.baselines.models.torch_model import AdamState, flatten_parameters
+    from flexs_tpu_torch.rl import ppo
+    from flexs_tpu_torch.runtime import ppo_runner
+
+    run = types.SimpleNamespace(dev=torch.device("cpu"), **seen["run"])
+    (opts, stats) = seen["before"]
+    run.nets, run.opt_states = [], []
+    for opt in opts:
+        net = ppo.ActorCritic(run.dim, run.dim, (128,), torch.Generator())
+        flat = flatten_parameters(net)
+        with torch.no_grad():
+            flat.copy_(opt[0][0])
+        run.nets.append(net)
+        run.opt_states.append(AdamState(flat[None], *(x.clone() for x in opt[1:])))
+    run.stats = ppo.ObsStats(*(x.clone() for x in stats))
+    ppo_runner._PPORun.train(run, *seen["args"])
+    card_opts, card_stats = seen["after"]
+    out = {"rows": sum(min(s, run.traj_cap - 1) for s in seen["args"][-1])}
+    for c, (card, cpu, start) in enumerate(zip(card_opts, run.opt_states, opts)):
+        step = cpu.params - start[0]
+        diff = card[0] - cpu.params
+        rel = float(diff.norm() / step.norm())
+        assert float(step.norm()) > 0 and rel <= PPO_TRAIN_RTOL, (c, rel)
+        assert torch.equal(card[3], cpu.count), (card[3], cpu.count)
+        out[f"cell_{c}"] = {"update_norm": float(step.norm()), "rel_diff": rel,
+                            "max_abs_diff": float(diff.abs().max()),
+                            "max_abs_step": float(step.abs().max())}
+    for name, card, cpu in zip(ppo.ObsStats._fields, card_stats, run.stats):
+        rel = float(((card - cpu).abs() / cpu.abs().clamp(min=1e-30)).max())
+        assert rel <= PPO_STATS_RTOL, (name, rel)
+        out[f"stats_{name}_max_rel_diff"] = rel
+    return out
+
+
+def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
+    """Phase 13 (a-d): the fused RL runners on the card."""
+    import pandas as pd
+    from flexs_tpu_torch import runtime
+    from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
+    from flexs_tpu_torch.parallel import run_landscape_robustness_sweep, run_robustness_sweep
+    from flexs_tpu_torch.runtime import jit_runner
+
+    run, batch = RL_RUN, RL_RUN["sequences_batch_size"]
+    classes = {"dqn": runtime.DeviceDQNNAM, "ppo": runtime.DevicePPONAM,
+               "dynappo": runtime.DeviceDynaPPONAM,
+               "dynappo_mutative": runtime.DeviceDynaPPOMutativeNAM}
+    kwargs = {"dynappo": dict(env_batch_size=16)}
+    steps = [("a 3msi", time.perf_counter())]
+    # a. The paper's fused RL rows on 3MSI over a perfect model.
+    problem = rosetta.registry()["3msi"]
+    start = problem["starts"]["ed_3_wt"]
+    paper = {}
+    for name, cls in classes.items():
+        steps.append((f"a {name}", time.perf_counter()))
+        rounds = RL_RUN_ROUNDS[name]
+        land = rosetta.RosettaFolding(**problem["params"])
+        runner = cls(land, flexs.AAS, starting_sequence=start, model="perfect", seed=0,
+                     rounds=rounds, **run, **kwargs.get(name, {}))
+        cuda_duplex.reset_launch_counts()
+        with timed_dqn_bursts() as bursts, captured_ppo_train() as ppo_train:
+            df, reading = fused_run(runner, land)
+        no_duplex_launches(cuda_duplex, f"13a {name}")
+        if name == "dqn":
+            burst_s = sum(a.elapsed_time(b) for a, b in bursts) / 1e3
+            reading.update(bursts=len(bursts), burst_s=burst_s,
+                           burst_share=burst_s / reading["wall_s"])
+        # The DynaPPO runners' experiment phases score on the landscape too.
+        measured = land.cost if name in ("dqn", "ppo") else len(df)
+        assert df["measurement_cost"].iloc[-1] == len(df) == measured
+        check_fused_frame(df, land, rounds, batch, start, unique=name != "dqn")
+        reading.update(rounds=rounds, syncs_per_round=reading["host_syncs"] / rounds,
+                       host_top_2_rounds=host_tops[name]["top"],
+                       reference_dynappo=REFERENCE_DYNAPPO)
+        if name == "dynappo":
+            assert reading["host_syncs"] == 0, "DynaPPO synced inside a round"
+        if name == "ppo":
+            reading["train_card_vs_cpu"] = ppo_train_card_vs_cpu(ppo_train)
+        paper[name] = reading
+        print(f"fused 3msi {name} ({rounds} rounds, perfect model): {json.dumps(reading)} "
+              f"[{card}]")
+
+    # DynaPPO's episodes as CUDA-graph replays equal eager ones (1 round).
+    steps.append(("a graph vs eager", time.perf_counter()))
+    land = rosetta.RosettaFolding(**problem["params"])
+    cfg = runtime.AdaleadConfig(rounds=1, alphabet_size=20, perfect_model=True, **run)
+    tokens = torch.as_tensor(flexs.Alphabet(flexs.AAS).encode_one(start), device=land.device)
+    results, graph_walls = [], {}
+    for graph in (True, False):
+        gen = torch.Generator(device=land.device)
+        gen.manual_seed(0)
+        res, graph_walls[graph] = timed(lambda: runtime.dyna_ppo_runner.run_dyna_ppo_nam(
+            *land.device_fitness(), tokens, cfg, 1.0, gen, env_batch_size=16,
+            cuda_graph=graph))
+        results.append(res)
+    for name, a, b in zip(results[0]._fields, *results):
+        assert torch.equal(a, b), f"graphed DynaPPO != eager in {name}"
+    paper["dynappo"]["graph_vs_eager_1_round_s"] = [graph_walls[True], graph_walls[False]]
+    print(f"fused dynappo, 1 round: CUDA-graph episodes == eager bitwise; walls "
+          f"{graph_walls[True]} s graphed, {graph_walls[False]} s eager [{card}]")
+
+    # b. The kernel's path: PPO and DynaPPO over NAM 0.9 on L100_RNA1, twice each.
+    reg = rna.registry()
+    l100_start = reg["L100_RNA1"]["starts"][1]
+    l100 = {}
+    for name in ("ppo", "dynappo"):
+        steps.append((f"b {name}", time.perf_counter()))
+        rounds = RL_L100_ROUNDS[name]
+        runs = []
+        for _ in range(2):
+            land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+            runner = classes[name](land, flexs.RNAA, starting_sequence=l100_start,
+                                   signal_strength=0.9, seed=0, rounds=rounds, **run,
+                                   **kwargs.get(name, {}))
+            cuda_duplex.reset_launch_counts()
+            df, reading = fused_run(runner, land)
+            reading["duplex_launches"] = path_launches(cuda_duplex, f"fused L100_RNA1 {name}")
+            reading["last_round_mean"] = float(df.loc[df["round"] == rounds, "true_score"].mean())
+            check_fused_frame(df, land, rounds, batch, l100_start, unique=True)
+            runs.append((df, reading))
+        pd.testing.assert_frame_equal(runs[0][0], runs[1][0])
+        assert runs[0][1]["duplex_launches"] == runs[1][1]["duplex_launches"]
+        reading = {**runs[0][1], "rounds": rounds, "second_wall_s": runs[1][1]["wall_s"]}
+        l100[name] = reading
+        print(f"fused L100_RNA1 {name} (NAM 0.9, start 1, {rounds} rounds, twice, identical "
+              f"frames): {json.dumps(reading)} [{card}]")
+        launches, top, mean = RL_L100_PINS[name]
+        assert reading["duplex_launches"] == launches, (name, reading["duplex_launches"])
+        assert round(reading["top"], 6) == top, (name, reading["top"])
+        assert round(reading["last_round_mean"], 6) == mean, (name, reading["last_round_mean"])
+
+    # c. The density on the card, and an exact-density mutative round.
+    steps.append(("c density", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    density = density_card_vs_cpu(flexs, start)
+    print(f"density card vs CPU (3MSI width, {DENSITY_QUERIES} x {DENSITY_POOL}; distances "
+          f"bitwise, sums within {DENSITY_RTOL} relative): {json.dumps(density)} [{card}]")
+    for metric in ("hamming", "edit"):
+        land = rosetta.RosettaFolding(**problem["params"])
+        runner = runtime.DeviceDynaPPOMutativeNAM(
+            land, flexs.AAS, starting_sequence=start, model="perfect", seed=0, rounds=1,
+            density_metric=metric, **run)
+        df, reading = fused_run(runner, land)
+        # At R = 1 the annealed experiment budget is the whole batch: the
+        # round proposes B - (2 B) // 2 = 0 sequences (its batches a host sync each).
+        assert len(df) == 1 and reading["host_syncs"] > 1, reading
+        density[f"mutative_1_round_{metric}"] = reading
+    no_duplex_launches(cuda_duplex, "13c")
+    print(f"fused 3msi dynappo_mutative, 1 round: edit density wall "
+          f"{density['mutative_1_round_edit']['wall_s']} s beside Hamming "
+          f"{density['mutative_1_round_hamming']['wall_s']} s [{card}]")
+
+    # d. Sweeps: DynaPPO over TF-Bind in one lockstep chunk, DQN over L100_RNA1's starts.
+    steps.append(("d dynappo sweep", time.perf_counter()))
+    tf_start = tf_binding.registry()["SIX6_REF_R1"]["starts"][0]
+    names = list(tf_binding.registry())[:FUSED_SWEEP_LANDSCAPES]
+    dyna_run = {**run, "rounds": RL_SWEEP_ROUNDS["dynappo"]}
+    cuda_duplex.reset_launch_counts()
+    jit_runner.reset_run_counts()
+    dyna_sweep, dyna_wall = timed(lambda: run_robustness_sweep(
+        names, [tf_start], signal_strengths=FUSED_SWEEP_SS, seeds=FUSED_SWEEP_SEEDS,
+        algorithm="dynappo", **dyna_run))
+    dyna_syncs = jit_runner.run_counts["syncs"]
+    no_duplex_launches(cuda_duplex, "13d dynappo sweep")
+    assert len(dyna_sweep) == len(names) * len(FUSED_SWEEP_SS) * len(FUSED_SWEEP_SEEDS)
+    for row in (dyna_sweep.iloc[0], dyna_sweep.iloc[-1]):
+        same_as_alone(row, tf_binding.TFBinding(name=row["landscape"]),
+                      runtime.DeviceDynaPPONAM, flexs.DNAA, dyna_run)
+    steps.append(("d dqn sweep", time.perf_counter()))
+    starts = [reg["L100_RNA1"]["starts"][k] for k in FUSED_RNA_SWEEP_STARTS]
+    dqn_run = {**run, "rounds": RL_SWEEP_ROUNDS["dqn"]}
+    land = rna.RNABinding(**reg["L100_RNA1"]["params"])
+    cuda_duplex.reset_launch_counts()
+    dqn_sweep, dqn_wall = timed(lambda: run_landscape_robustness_sweep(
+        [land], flexs.RNAA, starts, signal_strengths=[0.9], seeds=[0], algorithm="dqn",
+        **dqn_run))
+    dqn_launches = path_launches(cuda_duplex, "fused DQN sweep")
+    assert dqn_launches == RL_DQN_SWEEP_LAUNCHES, dqn_launches
+    for row in (dqn_sweep.iloc[0], dqn_sweep.iloc[-1]):
+        same_as_alone(row, rna.RNABinding(**reg["L100_RNA1"]["params"]), runtime.DeviceDQNNAM,
+                      flexs.RNAA, dqn_run)
+    sweeps = {}
+    for label, df, wall, rounds in (("dynappo_tf_bind", dyna_sweep, dyna_wall, dyna_run["rounds"]),
+                                    ("dqn_l100", dqn_sweep, dqn_wall, dqn_run["rounds"])):
+        scored = int(df["model_cost"].sum() + df["landscape_cost"].sum())
+        sweeps[label] = {"cells": len(df), "rounds": rounds, "wall_s": wall,
+                         "s_per_cell": wall / len(df),
+                         "sequences_scored_per_s": scored / wall,
+                         "mean_max_fitness": float(df["max_fitness"].mean())}
+    sweeps["dynappo_tf_bind"]["host_syncs"] = dyna_syncs
+    sweeps["dqn_l100"]["duplex_launches"] = dqn_launches
+    print(f"fused RL sweeps (first and last cells == standalone runs): {json.dumps(sweeps)} "
+          f"[{card}]")
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 13 step walls (s): {json.dumps(walls)}")
+    return {"paper_3msi": paper, "l100": l100, "density": density, "sweeps": sweeps,
             "step_walls_s": walls}
 
 
@@ -2046,12 +2417,17 @@ def main() -> int:
                                          explorer_readings["paper_3msi"])
     print(f"fused runner readings: {json.dumps(fused_readings)}")
 
+    stamps.append(("13 rl runners", time.perf_counter()))
+    # 13. The fused RL runners, and their sweeps.
+    rl_readings = rl_runner_phases(flexs, cuda_duplex, card, explorer_readings["paper_3msi"])
+    print(f"rl runner readings: {json.dumps(rl_readings)}")
+
     # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 13. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 14. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -2068,6 +2444,9 @@ def main() -> int:
         "fused_l100_ga_launches": fused_readings["l100"]["ga"]["duplex_launches"],
         "fused_l100_bo_launches": fused_readings["l100"]["bo"]["duplex_launches"],
         "fused_bo_sweep_launches": fused_readings["sweeps"]["bo_l100"]["duplex_launches"],
+        "fused_l100_ppo_launches": rl_readings["l100"]["ppo"]["duplex_launches"],
+        "fused_l100_dynappo_launches": rl_readings["l100"]["dynappo"]["duplex_launches"],
+        "fused_dqn_sweep_launches": rl_readings["sweeps"]["dqn_l100"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

@@ -83,6 +83,50 @@ class QNetwork(nn.Module):
         return self.head(h)
 
 
+# Elements of a [states, actions, width] first-layer block that the next
+# states' Q values may take at once (1 GiB of float32); more states are
+# taken in chunks.
+NEXT_Q_ELEMENTS = 1 << 28
+
+
+def max_next_q(q_network: QNetwork, next_obs: torch.Tensor) -> torch.Tensor:
+    """max_a Q(s', a) f32[B] of next states f32[B, dim], in chunks of states.
+
+    A chunk holds at most `NEXT_Q_ELEMENTS` elements of the [chunk, dim,
+    dim] first-layer block, so a wide alphabet and sequence (3MSI's dim is
+    1,320) never needs more memory than that.
+    """
+    per_state = q_network.dim * q_network.dim
+    step = max(1, NEXT_Q_ELEMENTS // per_state)
+    return torch.cat([
+        q_network.all_actions(next_obs[i:i + step]).amax(dim=1)
+        for i in range(0, next_obs.shape[0], step)
+    ])
+
+
+def train_step(q_network: QNetwork, opt_state, obs, acts, rews, next_obs,
+               gamma: float) -> torch.Tensor:
+    """One Adam(1e-3) step of the TD loss after the global L1 clip at 1.0; the loss.
+
+    TD target r + gamma * max_a' Q(s', a') of the same network (no target
+    network), unweighted MSE; the clip spans every gradient, the BatchNorm
+    statistics' too (the JAX package's optax chain).  `opt_state` is an
+    `adam_init` state over the net's flat parameters.
+    """
+    q_sa = q_network(torch.cat([obs, acts], dim=1))
+    with torch.no_grad():
+        target = max_next_q(q_network, next_obs) * gamma + rews
+    # The reference uses an unweighted MSELoss (:167-171); the PER
+    # importance weights are sampled but unused there, as here.
+    loss = torch.mean(torch.square(q_sa - target))
+    grads = flat_grad(loss, q_network)
+    # Clip by the global L1 norm (every gradient, the statistics' too).
+    norm = torch.sum(torch.abs(grads))
+    grads = grads * torch.clamp(1.0 / (norm + 1e-12), max=1.0)
+    adam_step_(opt_state, grads[None], 1e-3)
+    return loss.detach()
+
+
 class DQN(Explorer):
     """DQN explorer: epsilon-greedy mutation walk guided by a Q network."""
 
@@ -154,20 +198,10 @@ class DQN(Explorer):
     def _train(self, obs, acts, rews, next_obs) -> torch.Tensor:
         """`train_epochs` Adam steps on stacked PER batches [E, B, ...]; mean loss."""
         opt_state = adam_init(self._flat[None])
-        losses = []
-        for obs_b, acts_b, rews_b, next_b in zip(obs, acts, rews, next_obs):
-            q_sa = self.q_network(torch.cat([obs_b, acts_b], dim=1))
-            with torch.no_grad():
-                target = self.q_network.all_actions(next_b).amax(dim=1) * self.gamma + rews_b
-            # The reference uses an unweighted MSELoss (:167-171); the PER
-            # importance weights are sampled but unused there, as here.
-            loss = torch.mean(torch.square(q_sa - target))
-            grads = flat_grad(loss, self.q_network)
-            # Clip by the global L1 norm (every gradient, the statistics' too).
-            norm = torch.sum(torch.abs(grads))
-            grads = grads * torch.clamp(1.0 / (norm + 1e-12), max=1.0)
-            adam_step_(opt_state, grads[None], 1e-3)
-            losses.append(loss.detach())
+        losses = [
+            train_step(self.q_network, opt_state, *batch, self.gamma)
+            for batch in zip(obs, acts, rews, next_obs)
+        ]
         return torch.stack(losses).mean()
 
     # -- setup --------------------------------------------------------------

@@ -6,7 +6,8 @@ cloud VMs (paper_code/cloud/runner.py:90-126).  Here a grid — landscape x
 starting sequence x signal strength x seed — runs in chunks of cells, each
 chunk one lockstep batch on one device through a fused runner's cell-axis
 entry point (`algorithm=`: Adalead by default, or Random, GA, CMA-ES, BO,
-GPR_BO, CbAS or DbAS): the counterpart of the JAX package's vmapped sweep.
+GPR_BO, CbAS, DbAS, DQN, PPO, DynaPPO or mutative DynaPPO): the
+counterpart of the JAX package's vmapped sweep.
 A cell's result depends only on its own (landscape, start, signal
 strength, seed), so it equals the standalone fused run with that seed,
 whatever its chunk.
@@ -40,6 +41,9 @@ from flexs_tpu_torch.runtime import surrogate as surrogate_lib
 from flexs_tpu_torch.runtime.bo_runner import run_bo_nam_cells
 from flexs_tpu_torch.runtime.cbas_runner import VAEConfig, run_cbas_nam_cells
 from flexs_tpu_torch.runtime.cmaes_runner import run_cmaes_nam_cells
+from flexs_tpu_torch.runtime.dqn_runner import run_dqn_nam_cells
+from flexs_tpu_torch.runtime.dyna_ppo_mutative_runner import run_dyna_ppo_mutative_nam_cells
+from flexs_tpu_torch.runtime.dyna_ppo_runner import SURROGATE_ERROR, run_dyna_ppo_nam_cells
 from flexs_tpu_torch.runtime.ga_runner import run_ga_nam_cells
 from flexs_tpu_torch.runtime.gpr_bo_runner import run_gpr_bo_nam_cells
 from flexs_tpu_torch.runtime.jit_runner import (
@@ -47,6 +51,7 @@ from flexs_tpu_torch.runtime.jit_runner import (
     RunResult,
     run_adalead_nam_cells,
 )
+from flexs_tpu_torch.runtime.ppo_runner import run_ppo_nam_cells
 from flexs_tpu_torch.runtime.random_runner import run_random_nam_cells
 
 # Each ported algorithm's cell-axis entry point and the JAX sweep's defaults
@@ -71,9 +76,13 @@ CELL_RUNNERS = {
         "algo": "dbas", "vae_cfg": VAEConfig(), "Q": 0.7, "cycle_batch_size": 100,
         "mutation_rate": 0.2,
     }),
+    "dqn": (run_dqn_nam_cells, {"memory_size": 4096, "train_epochs": 20, "gamma": 0.9}),
+    "ppo": (run_ppo_nam_cells, {"train_epochs": 10}),
+    "dynappo": (run_dyna_ppo_nam_cells, {"env_batch_size": 16, "num_model_rounds": 1}),
+    "dynappo_mutative": (run_dyna_ppo_mutative_nam_cells, {
+        "env_batch_size": 16, "episode_len": 20, "num_model_rounds": 1,
+    }),
 }
-# The JAX package's RL families, not ported yet (ROADMAP.md, item 16).
-UNPORTED_ALGORITHMS = ("dqn", "ppo", "dynappo", "dynappo_mutative")
 
 
 def _cell_runner(algorithm: str, algorithm_kwargs: Optional[dict]) -> Callable:
@@ -415,15 +424,13 @@ def _check_options(mesh, algorithm, model, surrogate_spec, cell_mode) -> str:
         raise NotImplementedError(
             "mesh= (sweeps over several devices) is not ported yet (ROADMAP.md, item 17)"
         )
-    if algorithm in UNPORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"sweeps of the fused {algorithm!r} runner are not ported yet (ROADMAP.md, item 16)"
-        )
     if algorithm not in CELL_RUNNERS:
         raise ValueError(f"unknown fused algorithm {algorithm!r}")
     if model not in ("nam", "perfect", "surrogate"):
         raise ValueError("model must be 'nam', 'perfect' or 'surrogate'")
     if model == "surrogate":
+        if algorithm in ("dynappo", "dynappo_mutative"):
+            raise ValueError(SURROGATE_ERROR)
         surrogate_lib.check_spec(surrogate_spec or surrogate_lib.SurrogateSpec())
     if cell_mode == "auto":
         return "map" if model == "surrogate" else "vmap"
@@ -469,11 +476,12 @@ def run_landscape_robustness_sweep(
     and `checkpoint_dir` are those of `sweep_adalead_nam`.
 
     `algorithm` selects the fused explorer ("adalead", "random", "ga",
-    "cmaes", "bo", "gpr_bo", "cbas" or "dbas"; another name raises
-    ValueError) and `algorithm_kwargs` its hyperparameters over the JAX
-    sweep's defaults (`CELL_RUNNERS`).  Not ported yet, and raising
-    NotImplementedError: `mesh` (ROADMAP item 17) and the RL algorithms
-    "dqn", "ppo", "dynappo" and "dynappo_mutative" (item 16).
+    "cmaes", "bo", "gpr_bo", "cbas", "dbas", "dqn", "ppo", "dynappo" or
+    "dynappo_mutative"; another name raises ValueError) and
+    `algorithm_kwargs` its hyperparameters over the JAX sweep's defaults
+    (`CELL_RUNNERS`).  "dynappo" and "dynappo_mutative" take no trained
+    surrogate (ValueError, as in the JAX package).  Not ported yet, and
+    raising NotImplementedError: `mesh` (ROADMAP item 17).
     """
     cell_mode = _check_options(mesh, algorithm, model, surrogate_spec, cell_mode)
     if model == "surrogate":

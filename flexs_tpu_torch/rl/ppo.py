@@ -17,8 +17,18 @@ TF-Agents PPOAgent, reference ppo.py:80-91 and dyna_ppo.py:193-211):
     across calls) on the clipped surrogate (epsilon 0.2) + 0.5 * value MSE
     - 0.01 * entropy, the masked log-probabilities set to 0 before the
     entropy product (0 * -inf is NaN in the gradient).
+
+The fused RL runners' PPO (the JAX package's `runtime/ppo_runner.py:453-507`
+and both DynaPPO runners, which each carry their own copy) is here once,
+on tensors with a leading cell axis and a validity mask: `gae` (a reverse
+time loop with episode cuts), `normalize_advantages` and `welford_merge`
+over the valid rows, `normalize_obs`, `act_cells` (each cell's own net and
+generator) and `ppo_update` (full-batch clipped-surrogate epochs under
+Adam, the gradient summed over row chunks).  Those runners keep their
+statistics in float32 and fold a batch in before normalizing it, as the
+JAX runners do.
 """
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -225,3 +235,158 @@ class PPOAgent:
             loss = self.loss(obs, actions, old_logprobs, adv, returns, masks)
             adam_step_(self._opt_state, flat_grad(loss, self.net)[None], self.learning_rate)
         return float(loss.detach())
+
+
+# -- The fused runners' PPO, on a leading cell axis ------------------------
+
+
+class PPOConfig(NamedTuple):
+    """The fused runners' PPO hyperparameters (the JAX runners' defaults)."""
+
+    train_epochs: int = 10
+    learning_rate: float = 3e-4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_coef: float = 0.5
+    entropy_coef: float = 0.01
+
+
+class ObsStats(NamedTuple):
+    """Running Welford statistics of the observations, one row per cell (float32)."""
+
+    count: torch.Tensor  # f32[C]
+    mean: torch.Tensor  # f32[C, D]
+    m2: torch.Tensor  # f32[C, D]
+
+
+def init_obs_stats(cells: int, dim: int, device) -> ObsStats:
+    """Count 1e-4, mean 0, M2 1 (the JAX runners' start)."""
+    return ObsStats(
+        torch.full((cells,), 1e-4, device=device),
+        torch.zeros((cells, dim), device=device),
+        torch.ones((cells, dim), device=device),
+    )
+
+
+def normalize_obs(stats: ObsStats, obs: torch.Tensor) -> torch.Tensor:
+    """obs f32[C, ..., D] standardized by each cell's running mean and variance."""
+    shape = (obs.shape[0],) + (1,) * (obs.dim() - 2) + (obs.shape[-1],)
+    var = stats.m2 / torch.clamp(stats.count, min=1.0)[:, None]
+    return (obs - stats.mean.view(shape)) / torch.sqrt(var.view(shape) + 1e-8)
+
+
+def welford_merge(stats: ObsStats, obs: torch.Tensor, valid: torch.Tensor) -> ObsStats:
+    """Fold the valid rows of obs f32[C, N, D] (valid bool[C, N]) into each cell's statistics.
+
+    Chan's parallel combine, in the JAX runner's order of operations
+    (`ppo_runner.py:133-144`); a cell with no valid row keeps its statistics.
+    """
+    w = valid.float()[..., None]
+    n_b = valid.sum(dim=1).float()
+    mean_b = (obs * w).sum(dim=1) / torch.clamp(n_b, min=1.0)[:, None]
+    m2_b = (torch.square(obs - mean_b[:, None]) * w).sum(dim=1)
+    delta = mean_b - stats.mean
+    tot = stats.count + n_b
+    n_b, tot, count = n_b[:, None], tot[:, None], stats.count[:, None]
+    return ObsStats(
+        tot[:, 0],
+        stats.mean + delta * n_b / tot,
+        stats.m2 + m2_b + torch.square(delta) * count * n_b / tot,
+    )
+
+
+def gae(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor, gamma: float,
+        gae_lambda: float) -> torch.Tensor:
+    """GAE(lambda) advantages f32[..., T] over the last (time) axis, cut where `dones`.
+
+    The reverse scan of `ppo_runner.py:457-471`: bootstrap and recursion stop
+    at a step marked done, and the carry starts at 0 past the last step.
+    Rows that are not valid steps must come as done with reward and value 0
+    (their advantage is then 0 and they carry nothing).  Every operation is
+    elementwise over the leading axes, so a cell's advantages do not depend
+    on the other cells.
+    """
+    adv = torch.empty_like(rewards)
+    last = torch.zeros(rewards.shape[:-1], device=rewards.device)
+    next_value = torch.zeros_like(last)
+    nonterminal = 1.0 - dones.float()
+    for t in reversed(range(rewards.shape[-1])):
+        nt = nonterminal[..., t]
+        delta = rewards[..., t] + gamma * next_value * nt - values[..., t]
+        last = delta + gamma * gae_lambda * nt * last
+        adv[..., t] = last
+        next_value = values[..., t]
+    return adv
+
+
+def normalize_advantages(adv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """adv f32[C, N] less the mean of each cell's valid rows, over their std (+1e-8)."""
+    n = torch.clamp(valid.sum(dim=1), min=1).float()[:, None]
+    mean = torch.where(valid, adv, 0.0).sum(dim=1, keepdim=True) / n
+    var = torch.where(valid, torch.square(adv - mean), 0.0).sum(dim=1, keepdim=True) / n
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
+@torch.no_grad()
+def act_cells(nets: Sequence[ActorCritic], obs: torch.Tensor, cells):
+    """(actions int64[C, n], log-probabilities, values) of obs f32[C, n, D].
+
+    `cells` holds (cell, generator) pairs: each listed cell's own net acts
+    on its rows, with one categorical draw per row (Gumbel-max from the
+    cell's generator, as `jax.random.categorical` draws); the rows of the
+    other cells read 0.  Cell by cell, so no cell's numbers depend on
+    another's.
+    """
+    C, n = obs.shape[:2]
+    zero_l = torch.zeros(n, dtype=torch.long, device=obs.device)
+    zero_f = torch.zeros(n, device=obs.device)
+    out = {c: (zero_l, zero_f, zero_f) for c in range(C)}
+    for c, g in cells:
+        logits, value = nets[c](obs[c])
+        expo = torch.empty_like(logits).exponential_(generator=g)
+        action = torch.argmax(logits - torch.log(expo), dim=1)
+        logp = torch.log_softmax(logits, dim=1).gather(1, action[:, None])[:, 0]
+        out[c] = (action, logp, value)
+    return tuple(torch.stack([out[c][k] for c in range(C)]) for k in range(3))
+
+
+def clipped_surrogate_loss(net: ActorCritic, obs, actions, old_logp, adv, returns, weights,
+                           cfg: PPOConfig) -> torch.Tensor:
+    """The fused runners' PPO loss of rows weighted by `weights` (summing to 1 over a batch).
+
+    -sum(min(r A, clip(r) A) w) + c_v sum((V - R)^2 w) - c_e (-sum(sum(p log p) w)),
+    `ppo_runner.py:484-500` with its 1 / n_valid folded into the weights.
+    """
+    logits, values = net(obs)
+    logps = torch.log_softmax(logits, dim=1)
+    logprob = logps.gather(1, actions[:, None])[:, 0]
+    ratio = torch.exp(logprob - old_logp)
+    clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps)
+    policy_loss = -torch.sum(torch.minimum(ratio * adv, clipped * adv) * weights)
+    value_loss = torch.sum(torch.square(values - returns) * weights)
+    entropy = -torch.sum(torch.sum(torch.exp(logps) * logps, dim=1) * weights)
+    return policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * entropy
+
+
+def ppo_update(net: ActorCritic, opt_state, chunk: Callable[[int], tuple], n_chunks: int,
+               cfg: PPOConfig) -> List[float]:
+    """`cfg.train_epochs` full-batch Adam steps of `clipped_surrogate_loss` on one cell's net.
+
+    `chunk(i)` gives rows i of the batch as (obs, actions, old_logp, adv,
+    returns, weights); each epoch's gradient is the sum of the chunks'
+    (the JAX DynaPPO runners accumulate theirs the same way).  `opt_state`
+    is the net's `adam_init` state over its flat parameters, kept across
+    calls.  Returns each epoch's loss as a device scalar list.
+    """
+    losses = []
+    for _ in range(cfg.train_epochs):
+        grads, loss = None, 0.0
+        for i in range(n_chunks):
+            part = clipped_surrogate_loss(net, *chunk(i), cfg)
+            g = flat_grad(part, net)
+            grads = g if grads is None else grads + g
+            loss = loss + part.detach()
+        adam_step_(opt_state, grads[None], cfg.learning_rate)
+        losses.append(loss)
+    return losses

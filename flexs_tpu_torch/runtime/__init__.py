@@ -13,6 +13,18 @@ from flexs_tpu_torch.runtime.cmaes_runner import (  # noqa: F401
     DeviceCMAESNAM,
     run_cmaes_nam,
 )
+from flexs_tpu_torch.runtime.dqn_runner import (  # noqa: F401
+    DeviceDQNNAM,
+    run_dqn_nam,
+)
+from flexs_tpu_torch.runtime.dyna_ppo_mutative_runner import (  # noqa: F401
+    DeviceDynaPPOMutativeNAM,
+    run_dyna_ppo_mutative_nam,
+)
+from flexs_tpu_torch.runtime.dyna_ppo_runner import (  # noqa: F401
+    DeviceDynaPPONAM,
+    run_dyna_ppo_nam,
+)
 from flexs_tpu_torch.runtime.ga_runner import (  # noqa: F401
     DeviceGeneticAlgorithmNAM,
     run_ga_nam,
@@ -25,6 +37,10 @@ from flexs_tpu_torch.runtime.jit_runner import (  # noqa: F401
     AdaleadConfig,
     DeviceAdaleadNAM,
     run_adalead_nam,
+)
+from flexs_tpu_torch.runtime.ppo_runner import (  # noqa: F401
+    DevicePPONAM,
+    run_ppo_nam,
 )
 from flexs_tpu_torch.runtime.random_runner import (  # noqa: F401
     DeviceRandomNAM,

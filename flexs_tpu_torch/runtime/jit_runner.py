@@ -55,7 +55,11 @@ cache and query, the counters and their syncs, the top-B proposal and its
 measurement) are `CellRun`, which the Adalead rounds (`_Run`) and the
 other runners of this package (`random_runner`, `ga_runner`,
 `cmaes_runner`, `bo_runner`, `gpr_bo_runner`, `cbas_runner`) subclass;
-`DeviceRunner` is their shared (df, metadata) and run-log wrapper.
+the RL runners (`dqn_runner`, `ppo_runner`, `dyna_ppo_runner`,
+`dyna_ppo_mutative_runner`), which query the model every step, subclass
+`AsyncCellRun`, whose queries and measurements need no host sync, and
+keep their recorded pools and density caches in `Pool`s.  `DeviceRunner`
+is their shared (df, metadata) and run-log wrapper.
 """
 import time
 import warnings
@@ -251,20 +255,26 @@ class CellRun:
     def pack(self, tokens):
         return packed_hamming.pack_tokens(tokens, self.cfg.alphabet_size, length=self.L)
 
-    def dists_to_cache(self, packed):
-        """Hamming distances int32[C, m, N] to the cache rows, N the largest fill.
+    def masked_dists(self, packed, rows_pk, n_rows, bound: int):
+        """Hamming int32[C, m, b] of packed rows to the first b = `bound` rows of `rows_pk`.
 
-        A cell's rows past its own fill read L + 1, above any distance, so
-        min and first-index argmin see only its filled rows.
+        Rows at or past a cell's fill `n_rows` (int64[C]) read L + 1, above
+        any distance, so min and first-index argmin see only filled rows.
         """
-        n_max = max(self.n_cache)
-        dists = packed_hamming.packed_hamming_matrix(
-            packed, self.cache_pk[:, :n_max], self.bits, self.per_word
+        bound = max(1, min(bound, rows_pk.shape[1]))
+        d = packed_hamming.packed_hamming_matrix(
+            packed, rows_pk[:, :bound], self.bits, self.per_word
         )
-        if min(self.n_cache) == n_max:
-            return dists
-        filled = torch.arange(n_max, device=self.dev) < self.n_cache_t[:, None]
-        return torch.where(filled[:, None, :], dists, self.L + 1)
+        filled = torch.arange(bound, device=self.dev) < n_rows[:, None]
+        return torch.where(filled[:, None, :], d, self.L + 1)
+
+    def cache_bound(self) -> int:
+        """The host's bound of the cache fills: the largest fill."""
+        return max(self.n_cache)
+
+    def dists_to_cache(self, packed):
+        """Hamming distances int32[C, m, N] to the cache rows, N = `cache_bound()`."""
+        return self.masked_dists(packed, self.cache_pk, self.n_cache_t, self.cache_bound())
 
     def novel(self, packed, mask):
         """bool[C, m]: rows of `packed` in no cache row and equal to no earlier row of `mask`."""
@@ -281,6 +291,37 @@ class CellRun:
         the cache.  With a surrogate every row is a fresh prediction (1
         model cost), and uncached rows are inserted with it.  `charge`
         (default `mask`) marks the rows that cost a model query.
+        """
+        values, pos, insert = self.score_into_cache(tokens, mask, live)
+        charged = mask if charge is None else charge
+        sums = torch.stack([charged.sum(dim=1), insert.sum(dim=1)])
+        self.counts_t += sums
+        n_charged, n_insert = self.fetch(sums)
+        for c in range(self.C):
+            self.model_cost[c] += n_charged[c]
+            self.n_cache[c] += n_insert[c]
+            if self.nam_corrupts:
+                self.landscape_cost[c] += 2 * n_insert[c]
+        return values, pos
+
+    @property
+    def nam_corrupts(self) -> bool:
+        """Whether an uncached query runs the NAM corruption (2 landscape costs a row)."""
+        return not self.cfg.perfect_model and self.cfg.surrogate is None
+
+    def random_rows(self, gens, shape):
+        """int64 `shape`: uniform cache rows below each drawing cell's fill, its NAM noise rows."""
+        (idx,) = self.draw_buffers(gens, shape, torch.long)
+        for c, g in gens:
+            idx[c].random_(0, self.n_cache[c], generator=g)
+        return idx
+
+    def score_into_cache(self, tokens, mask, live, dedup: bool = False):
+        """The device half of a NAM query: (values, cache positions, inserted rows bool[C, m]).
+
+        `nam_query`'s scoring and cache insertion, with no count updated.
+        With `dedup`, a masked row equal to an earlier masked row of its
+        cell shares that row's value and position and inserts nothing.
         """
         C, m = mask.shape
         spec = self.cfg.surrogate
@@ -300,10 +341,10 @@ class CellRun:
             signal = self.fitness_fn(self.fitness_params, tokens)
             neighbor_truth = self.cache_truth.gather(1, nearest)
             gens = self.live_gens(live, draws=2)
-            expo, rand_idx = self.draw_buffers(gens, (C, m), torch.float32, torch.long)
+            (expo,) = self.draw_buffers(gens, (C, m), torch.float32)
             for c, g in gens:
                 expo[c].exponential_(1.0, generator=g)
-                rand_idx[c].random_(0, self.n_cache[c], generator=g)
+            rand_idx = self.random_rows(gens, (C, m))
             noise = torch.where(
                 neighbor_truth >= 0, expo * neighbor_truth, self.cache_vals.gather(1, rand_idx)
             )
@@ -312,23 +353,23 @@ class CellRun:
             values = torch.where(cached, cached_vals, nam_vals)
 
         insert = mask & ~cached
+        if dedup:
+            # First masked row equal to each row (itself where none is earlier).
+            eq = (pk.unsqueeze(2) == pk.unsqueeze(1)).all(dim=-1) & mask.unsqueeze(1)
+            order = torch.arange(m, device=self.dev).expand(C, m)
+            first = torch.where(eq.any(dim=2), eq.int().argmax(dim=2), order)
+            dup = first < order
+            values = torch.where(dup, values.gather(1, first), values)
+            insert = insert & ~dup
         pos = _masked_append(
             self.cache_pk, pk, self.n_cache_t, insert,
             aux_bufs=(self.cache_vals, self.cache_truth), aux_rows=(values, signal),
         )
         # Cached rows' "position" is their existing cache slot.
         pos = torch.where(cached, nearest, pos)
-
-        charged = mask if charge is None else charge
-        sums = torch.stack([charged.sum(dim=1), insert.sum(dim=1)])
-        self.counts_t += sums
-        n_charged, n_insert = self.fetch(sums)
-        for c in range(C):
-            self.model_cost[c] += n_charged[c]
-            self.n_cache[c] += n_insert[c]
-            if not self.cfg.perfect_model and spec is None:
-                self.landscape_cost[c] += 2 * n_insert[c]
-        return values, pos
+        if dedup:
+            pos = torch.where(dup, pos.gather(1, first), pos)
+        return values, pos, insert
 
     def train_surrogate(self):
         """Retrain each cell's surrogate on its measured set (no-op without one)."""
@@ -361,6 +402,14 @@ class CellRun:
         `truth_to_cache`.  Invalid rows write to the trash row, so no slot
         is written twice.
         """
+        truth, n_valid = self.store_measurement(proposals, valid, slots, truth_to_cache)
+        for c, n in enumerate(self.fetch(n_valid)):
+            self.landscape_cost[c] += n
+            self.n_measured_h[c] += n
+        return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
+
+    def store_measurement(self, proposals, valid, slots=None, truth_to_cache=False):
+        """`measure`'s device work: (truth f32[C, B], valid count int64[C]), nothing fetched."""
         truth = self.fitness_fn(self.fitness_params, proposals)
         truth = torch.where(valid, truth, -torch.inf)
         n_valid = valid.sum(dim=1)
@@ -375,10 +424,7 @@ class CellRun:
             self.cache_vals[self.cells, slots] = truth
             if truth_to_cache:
                 self.cache_truth[self.cells, slots] = truth
-        for c, n in enumerate(self.fetch(n_valid)):
-            self.landscape_cost[c] += n
-            self.n_measured_h[c] += n
-        return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
+        return truth, n_valid
 
 
 def first_occurrence(packed, mask):
@@ -387,6 +433,148 @@ def first_occurrence(packed, mask):
     earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=packed.device), diagonal=-1)
     eq = (packed.unsqueeze(2) == packed.unsqueeze(1)).all(dim=-1)
     return ~(eq & earlier & mask.unsqueeze(1)).any(dim=2)
+
+
+class AsyncCellRun(CellRun):
+    """A `CellRun` whose NAM queries and measurements queue on the device without a host sync.
+
+    The RL runners query the model once or twice a step, so their counters
+    (model and landscape costs, the cache's fill, the measured set's fill)
+    live on the device alone, and the host bounds each fill by what could
+    have been added since it was last read: distances cover the rows up to
+    the bound, each cell's unfilled rows masked.  A runner reads the
+    counters (`read_counts`) only where its loop control needs them.  A
+    query dedups its batch: a masked row equal to an earlier masked row of
+    its cell shares that row's value and noise draw and inserts no cache
+    row (the JAX DynaPPO runners' rule, `dyna_ppo_runner.py:206-212`).
+    NAM noise picks its random cache row as floor(u * fill), u uniform,
+    since the fill is not on the host.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.landscape_cost_t = torch.ones(self.C, dtype=torch.long, device=self.dev)
+        self.cache_rows_bound = 1
+        self.measured_bound = 1
+
+    def cache_bound(self) -> int:
+        """The host's bound of the cache fills: the last read fill plus every row queried since."""
+        return self.cache_rows_bound
+
+    def random_rows(self, gens, shape):
+        """`CellRun.random_rows` with the fill on the device: floor(u * fill), u uniform."""
+        (u,) = self.draw_buffers(gens, shape, torch.float32)
+        for c, g in gens:
+            u[c].uniform_(0, 1, generator=g)
+        fill = self.n_cache_t[:, None]
+        return torch.minimum((u * fill).long(), fill - 1)
+
+    def query(self, tokens, mask, live):
+        """Score tokens int64[C, m, L] through the model where `mask`: (values, cache positions).
+
+        `nam_query`'s semantics without its sync, and with the batch dedup
+        above; `live` (host bools) marks the cells that draw.  A masked-out
+        row costs nothing and inserts nothing.
+        """
+        values, pos, insert = self.score_into_cache(tokens, mask, live, dedup=True)
+        n_insert = insert.sum(dim=1)
+        self.counts_t += torch.stack([mask.sum(dim=1), n_insert])
+        if self.nam_corrupts:
+            self.landscape_cost_t += 2 * n_insert
+        self.cache_rows_bound += mask.shape[1]
+        return values, pos
+
+    def oracle(self, tokens, mask):
+        """True fitness f32[C, m] of tokens, charging the masked rows to the landscape."""
+        self.landscape_cost_t += mask.sum(dim=1)
+        return self.fitness_fn(self.fitness_params, tokens)
+
+    def read_counts(self, *extra):
+        """One host sync: the costs and cache fills into the host lists, and `extra` int64[C] tensors."""
+        rows = self.fetch(torch.stack(
+            [self.model_cost_t, self.n_cache_t, self.landscape_cost_t, *extra]
+        ))
+        self.model_cost, self.n_cache, self.landscape_cost = rows[:3]
+        self.cache_rows_bound = max(self.n_cache)
+        return rows[3:]
+
+    def measured_pk(self):
+        """Packed measured rows int64[C, b, K], b the host bound of the fill."""
+        return self.pack(self.measured_tokens[:, : self.measured_bound])
+
+    def novel_to_measured(self, packed, measured_pk):
+        """bool[C, m]: rows of `packed` in no measured row of their cell."""
+        d = self.masked_dists(packed, measured_pk, self.n_measured, measured_pk.shape[1])
+        return d.amin(dim=2) > 0
+
+    def cache_slots(self, proposals):
+        """int64[C, B]: the cache row of each proposal, or the trash row where it has none."""
+        d = self.dists_to_cache(self.pack(proposals))
+        return torch.where(d.amin(dim=2) == 0, d.argmin(dim=2), self.cache_vals.shape[1] - 1)
+
+    def measure_queued(self, proposals, top_vals, valid, slots=None):
+        """`measure` without the sync: the round's outputs with device costs."""
+        truth, n_valid = self.store_measurement(proposals, valid, slots)
+        self.landscape_cost_t += n_valid
+        self.measured_bound += proposals.shape[1]
+        return (proposals, top_vals, truth, valid, self.model_cost_t.clone(),
+                self.landscape_cost_t.clone())
+
+
+class Pool:
+    """A per-cell buffer of distinct packed rows, each with a value (and its tokens).
+
+    The RL runners' recorded pools and density caches: `upsert` keeps the
+    last value of a row already present (a dict's assignment) and appends
+    the others once.  `n` (int64[C]) is on the device; `bounds` holds each
+    cell's host upper bound of its fill.  Row `cap` is the trash row.
+    """
+
+    def __init__(self, run: "CellRun", cap: int, fill: float, tokens: bool):
+        C, dev = run.C, run.dev
+        self.pk = torch.zeros((C, cap + 1, run.words), dtype=torch.long, device=dev)
+        self.fit = torch.full((C, cap + 1), fill, device=dev)
+        self.tokens = (torch.zeros((C, cap + 1, run.L), dtype=torch.long, device=dev)
+                       if tokens else None)
+        self.n = torch.zeros(C, dtype=torch.long, device=dev)
+        self.bounds = [0] * C
+
+    def live_rows(self):
+        """bool[C, bound]: each cell's filled rows up to the largest bound."""
+        return torch.arange(max(1, max(self.bounds)), device=self.n.device) < self.n[:, None]
+
+    def upsert(self, run: "AsyncCellRun", pk, fit, mask, live, tokens=None):
+        """pool[row] = fit for the masked rows of pk int64[C, m, K], in order (last write wins).
+
+        `live` (host bools) marks the cells whose `mask` may hold a True: their
+        bounds grow by m.
+        A row equal to a row already in the pool overwrites its value; the
+        others are appended, one row for equal rows of the batch.  Equal rows
+        carry equal values in the runners (the model's values are cached), so
+        the order of overwrites does not matter.
+        """
+        m = pk.shape[1]
+        d = run.masked_dists(pk, self.pk, self.n, max(self.bounds))
+        exists = d.amin(dim=2) == 0
+        upd = exists & mask
+        _scatter_rows(self.fit, torch.where(upd, d.argmin(dim=2), self.pk.shape[1] - 1), fit)
+        earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=pk.device), diagonal=-1)
+        eq = (pk.unsqueeze(2) == pk.unsqueeze(1)).all(dim=-1)
+        dup = (eq & earlier & mask.unsqueeze(1)).any(dim=2)
+        insert = mask & ~exists & ~dup
+        aux_bufs, aux_rows = (self.fit,), (fit,)
+        if self.tokens is not None:
+            aux_bufs, aux_rows = (self.fit, self.tokens), (fit, tokens)
+        _masked_append(self.pk, pk, self.n, insert, aux_bufs=aux_bufs, aux_rows=aux_rows)
+        self.n += insert.sum(dim=1)
+        for c, on in enumerate(live):
+            if on:
+                self.bounds[c] = min(self.bounds[c] + m, self.pk.shape[1] - 1)
+
+
+def _stack_costs(per_round, dev) -> torch.Tensor:
+    """int64[C, rounds] of per-round costs, each a host list or a device tensor of C counts."""
+    return torch.stack([torch.as_tensor(c, device=dev) for c in per_round], dim=1)
 
 
 def run_cells(run: CellRun) -> RunResult:
@@ -400,8 +588,8 @@ def run_cells(run: CellRun) -> RunResult:
         proposal_preds=torch.stack(preds, dim=1),
         proposal_truth=torch.stack(truth, dim=1),
         proposal_valid=torch.stack(valid, dim=1),
-        model_cost=torch.tensor(model_cost, device=dev).T.contiguous(),
-        landscape_cost=torch.tensor(landscape_cost, device=dev).T.contiguous(),
+        model_cost=_stack_costs(model_cost, dev),
+        landscape_cost=_stack_costs(landscape_cost, dev),
         start_truth=run.start_truth,
     )
 

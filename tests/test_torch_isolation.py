@@ -49,7 +49,9 @@ def test_port_sources_are_found():
                    "baselines/explorers/environments/ppo.py",
                    "baselines/explorers/environments/dyna_ppo.py",
                    "runtime/random_runner.py", "runtime/ga_runner.py", "runtime/cmaes_runner.py",
-                   "runtime/bo_runner.py", "runtime/gpr_bo_runner.py", "runtime/cbas_runner.py"):
+                   "runtime/bo_runner.py", "runtime/gpr_bo_runner.py", "runtime/cbas_runner.py",
+                   "runtime/dqn_runner.py", "runtime/ppo_runner.py",
+                   "runtime/dyna_ppo_runner.py", "runtime/dyna_ppo_mutative_runner.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -77,7 +79,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.ops.cmaes, flexs_tpu_torch.runtime.random_runner, "
         "flexs_tpu_torch.runtime.ga_runner, flexs_tpu_torch.runtime.cmaes_runner, "
         "flexs_tpu_torch.runtime.bo_runner, flexs_tpu_torch.runtime.gpr_bo_runner, "
-        "flexs_tpu_torch.runtime.cbas_runner; "
+        "flexs_tpu_torch.runtime.cbas_runner, flexs_tpu_torch.runtime.dqn_runner, "
+        "flexs_tpu_torch.runtime.ppo_runner, flexs_tpu_torch.runtime.dyna_ppo_runner, "
+        "flexs_tpu_torch.runtime.dyna_ppo_mutative_runner; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

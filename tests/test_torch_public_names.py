@@ -29,10 +29,6 @@ RENAMED = {
 
 # Names not ported yet -> ROADMAP.md item.
 NOT_PORTED = {
-    **{("runtime", n): 16 for n in (
-        "DeviceDQNNAM", "run_dqn_nam", "DeviceDynaPPONAM", "run_dyna_ppo_nam",
-        "DeviceDynaPPOMutativeNAM", "run_dyna_ppo_mutative_nam", "DevicePPONAM", "run_ppo_nam",
-    )},
     ("utils", "checkpointing"): 17,
     ("utils", "profiling"): 17,
 }
@@ -113,14 +109,15 @@ def test_item_14_names_are_ported():
 
 
 def test_item_16_runner_names_are_ported():
-    """The six non-RL fused runners (and VAEConfig) are ported; the RL four still wait."""
+    """Every fused runner of the JAX package (and VAEConfig) is ported, the RL four too."""
     from flexs_tpu_torch import runtime
 
     for name in ("DeviceRandomNAM", "run_random_nam", "DeviceGeneticAlgorithmNAM", "run_ga_nam",
                  "DeviceCMAESNAM", "run_cmaes_nam", "DeviceBONAM", "run_bo_nam",
                  "DeviceGPRBONAM", "run_gpr_bo_nam", "DeviceCbASNAM", "run_cbas_nam",
-                 "VAEConfig"):
+                 "VAEConfig", "DeviceDQNNAM", "run_dqn_nam", "DeviceDynaPPONAM",
+                 "run_dyna_ppo_nam", "DeviceDynaPPOMutativeNAM", "run_dyna_ppo_mutative_nam",
+                 "DevicePPONAM", "run_ppo_nam"):
         assert hasattr(runtime, name), name
-    assert sorted(n for (sub, n), item in NOT_PORTED.items() if item == 16) == sorted(
-        ["DeviceDQNNAM", "run_dqn_nam", "DeviceDynaPPONAM", "run_dyna_ppo_nam",
-         "DeviceDynaPPOMutativeNAM", "run_dyna_ppo_mutative_nam", "DevicePPONAM", "run_ppo_nam"])
+    assert not [key for key, item in NOT_PORTED.items() if item == 16]
+    assert not [n for n in _exported("runtime") if ("runtime", n) in NOT_PORTED]

@@ -413,7 +413,7 @@ def test_efficiency_and_adaptivity_with_a_surrogate():
 
 
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 17"),
-                                     ({"algorithm": "dynappo"}, "item 16")])
+                                     ({"mesh": object(), "algorithm": "dynappo"}, "item 17")])
 def test_generic_sweep_unported_options_raise(aav_pair, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         sweep.run_landscape_robustness_sweep(aav_pair, flexs.AAS, [aav_pair[0].wild_type], **kw,

@@ -218,8 +218,9 @@ def test_checkpoint_resume(tmp_path):
     "kw,item",
     [
         ({"mesh": object()}, "item 17"),
-        ({"algorithm": "dqn"}, "item 16"),
-        ({"algorithm": "ppo", "algorithm_kwargs": {"train_epochs": 2}}, "item 16"),
+        ({"mesh": object(), "algorithm": "dqn"}, "item 17"),
+        ({"mesh": object(), "algorithm": "ppo", "algorithm_kwargs": {"train_epochs": 2}},
+         "item 17"),
     ],
 )
 def test_unported_options_raise(kw, item):
@@ -252,11 +253,16 @@ SMALL_ALGORITHMS = {
     "gpr_bo": {},
     "cbas": {"cycle_batch_size": 20, "vae_cfg": VAEConfig(intermediate_dim=32, epochs=3)},
     "dbas": {"cycle_batch_size": 20, "vae_cfg": VAEConfig(intermediate_dim=32, epochs=3)},
+    "dqn": {"memory_size": 64, "train_epochs": 3},
+    "ppo": {"train_epochs": 2},
+    "dynappo": {"env_batch_size": 4, "train_epochs": 2},
+    "dynappo_mutative": {"env_batch_size": 4, "episode_len": 4, "train_epochs": 2},
 }
 FAMILY_RUNNERS = {
     "random": "DeviceRandomNAM", "ga": "DeviceGeneticAlgorithmNAM", "cmaes": "DeviceCMAESNAM",
     "bo": "DeviceBONAM", "gpr_bo": "DeviceGPRBONAM", "cbas": "DeviceCbASNAM",
-    "dbas": "DeviceCbASNAM",
+    "dbas": "DeviceCbASNAM", "dqn": "DeviceDQNNAM", "ppo": "DevicePPONAM",
+    "dynappo": "DeviceDynaPPONAM", "dynappo_mutative": "DeviceDynaPPOMutativeNAM",
 }
 SMALL_RUN = dict(rounds=2, sequences_batch_size=6, model_queries_per_batch=40)
 
@@ -282,6 +288,24 @@ def test_family_sweep_cell_equals_standalone_run(algorithm):
     assert row["max_fitness"] == single["true_score"].max()
     assert row["model_cost"] == single["model_cost"].iloc[-1]
     assert row["landscape_cost"] == land.cost
+
+
+@pytest.mark.parametrize("algorithm", ["dynappo", "dynappo_mutative"])
+def test_dynappo_families_reject_a_surrogate(algorithm):
+    """DynaPPO's runners take no trained surrogate, through the class and both sweeps."""
+    from flexs_tpu_torch import runtime
+
+    kw = dict(signal_strengths=[1.0], algorithm=algorithm, model="surrogate", device="cpu",
+              **SMALL_RUN)
+    with pytest.raises(ValueError, match="model='surrogate' does not apply"):
+        sweep.run_robustness_sweep(["SIX6_REF_R1"], tf_binding.STARTS[:1], **kw)
+    land = flexs.landscapes.TFBinding(name="SIX6_REF_R1", device="cpu")
+    with pytest.raises(ValueError, match="model='surrogate' does not apply"):
+        sweep.run_landscape_robustness_sweep([land], flexs.DNAA, tf_binding.STARTS[:1], **kw)
+    with pytest.raises(ValueError, match="model must be 'nam' or 'perfect'"):
+        getattr(runtime, FAMILY_RUNNERS[algorithm])(
+            land, flexs.DNAA, starting_sequence=tf_binding.STARTS[0], model="surrogate",
+            device="cpu", **SMALL_RUN)
 
 
 def test_robustness_sweep_routes_other_algorithms():
