@@ -91,8 +91,7 @@ Phases (any failed check raises, and the script exits nonzero):
         torch.profiler (CUDA activity only): wall, queries/s, peak memory,
         device idle share and the oracle's share of the wall (CUDA events);
      c. the host run, 2 rounds, on a landscape scoring 32 rows a pass;
-     d. a generic sweep over 2 of the 3 starts, cut to 1 round, one cell
-        after another ("map");
+     d. a generic sweep over 1 of the 3 starts, cut to 1 round ("map");
   10. the rest of the models and the exact-GP surrogate on RNABinding
      L100_RNA1 (b-d launch the main path's kernel through the oracle, and
      no row-cost build may launch):
@@ -161,8 +160,8 @@ Phases (any failed check raises, and the script exits nonzero):
         from start 1, 10 x 100 x 2000, each twice: identical frames, duplex
         launches and tops pinned (2,949, 0.632479; 111, 0.584328);
      d. run_robustness_sweep(algorithm="ga") over 4 TF-Bind landscapes x
-        ss {0.5, 0.9} x seeds {0, 1} in one lockstep chunk of 16 cells (2
-        rounds), and run_landscape_robustness_sweep(algorithm="bo") over
+        ss {0.5, 0.9} x seeds {0, 1} in one lockstep chunk of 16 cells (1
+        round), and run_landscape_robustness_sweep(algorithm="bo") over
         L100_RNA1's starts 1-3: first and last cells equal standalone
         runs; wall, s per cell, sequences scored/s;
   13. the fused RL runners (a and c launch no duplex build; b and d's DQN
@@ -195,7 +194,31 @@ Phases (any failed check raises, and the script exits nonzero):
         starts 1-3, 2 rounds, duplex launches pinned (4,003): first and
         last cells equal standalone runs exactly; wall, s per cell,
         sequences scored/s;
-  14. print the wall of each phase, one JSON line describing each kernel,
+  14. the infrastructure modules (the duplex kernel launches in b and e,
+     and in c's traced round):
+     a. a 4-cell TF-Bind GA grid (SIX6_REF_R1 x 2 starts x ss 0.9 x seeds
+        {0, 1}, 2 rounds of 100 x 500) through `flexs_tpu_torch.cli`
+        without a mesh, on a one-rank `multihost_sweep_mesh()` with
+        checkpoints, rerun (resumed from them, nothing rewritten), and over
+        two torchrun ranks that share the card and gather over gloo: the
+        four CSVs must be equal byte for byte;
+     b. a CNN at 3MSI's width fit, saved with `save_state` after its first
+        `train` (weights, Adam state, generator), loaded into another model
+        and fit again: equal to the uninterrupted fit bitwise; host Adalead
+        + NAM on L100_RNA1 run 2 rounds, then `resume_explorer` to 3: the
+        logged rows unchanged, the duplex kernel launched, every round's
+        true_score equal to `get_fitness` of its rows as one batch;
+     c. `amortized_seconds_per_call` of the kernel at B = 100 beside phase
+        2's CUDA-event median, and one fused L100_RNA1 round under
+        `profiling.trace`, whose Chrome trace must name the duplex kernel;
+     d. `python -m flexs_tpu_torch.cli`'s fast path as a program
+        (SIX6_REF_R1, 1 start, 2 rounds, 100 x 2000), equal to the same
+        call in this process;
+     e. the native library (native/flexs_native.cc, built with g++)
+        against the card: Rosetta 3msi within rtol 1e-4 / atol 1e-5 and
+        the duplex DP against the kernel on 100 L100_RNA1 rows within
+        rtol 1e-4 / atol 1e-3;
+  15. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -205,6 +228,7 @@ build.  The script needs one CUDA card and imports nothing of JAX.
 """
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -277,8 +301,9 @@ GFP_WIDTH = dict(layers=12, hidden=768)  # TAPE's bert-base; 12 heads, 256 token
 GFP_BATCH = 100
 # The fused run is cut in depth to 5 rounds, the host run to 2 and the sweep
 # to 2 of the 3 starts since phase 12 came (the script took 1,078 s of phases
-# with 10, 3 and 3 on an H100, PERF.md, Cells).
-GFP_FUSED_ROUNDS, GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS, GFP_SWEEP_STARTS = 5, 2, 1, 2
+# with 10, 3 and 3 on an H100, PERF.md, Cells), and the sweep to 1 start
+# since phase 14 came (1,038 s of phases with 2).
+GFP_FUSED_ROUNDS, GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS, GFP_SWEEP_STARTS = 5, 2, 1, 1
 # Phase 10: the rest of the models and the exact-GP surrogate on RNABinding
 # L100_RNA1.  (a) Each regressor on the card against the CPU, on numpy-seeded
 # training rows at the landscape's width (labels from its oracle) and as many
@@ -347,11 +372,12 @@ GRAPH_CHECK_QUERIES = 100
 FUSED_L100_PINS = {"ga": (2949, 0.632479), "bo": (111, 0.584328)}
 # (d) Sweeps: GA over 4 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1} in
 # one lockstep chunk of 16 cells, and BO over L100_RNA1's starts 1-3.  The GA
-# sweep is cut in depth to 2 rounds: on the 4^8 space its population runs
+# sweep is cut in depth to 1 round: on the 4^8 space its population runs
 # out of novel children, so a round runs many generations (a host sync
-# each), and 10 rounds took 252 s for the chunk on an H100 (PERF.md, Cells).
+# each), and 10 rounds took 252 s for the chunk on an H100, 2 rounds 57 s
+# with its two standalone runs (PERF.md, Cells).
 FUSED_SWEEP_LANDSCAPES, FUSED_SWEEP_SS, FUSED_SWEEP_SEEDS = 4, (0.5, 0.9), (0, 1)
-FUSED_GA_SWEEP_ROUNDS = 2
+FUSED_GA_SWEEP_ROUNDS = 1
 FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
 # Phase 13: the fused RL runners.  (a) The paper's fused RL rows on 3MSI
 # (scripts/run_paper_table.py:175-240): a perfect model of RosettaFolding
@@ -370,6 +396,10 @@ REFERENCE_DYNAPPO = {"mean": 0.934, "best": 0.972}
 # either sign on the two devices, so no elementwise bound), and the
 # observation statistics (Welford sums in another order).
 PPO_TRAIN_RTOL, PPO_STATS_RTOL = 1e-4, 1e-5
+# The last DQN burst of 13a's 3MSI run (20 Adam steps on samples drawn on
+# the card) replayed on the CPU from the card's inputs and the card's
+# draws: the weights' distance, relative to the weights' norm.
+DQN_BURST_RTOL = 1e-4
 # (b) PPO and DynaPPO over NAM 0.9 on L100_RNA1 from start 1, 100 x 2000,
 # cut to 2 rounds and 1; duplex launches, top and the last round's mean
 # true_score pinned from their first run on an H100.  No proposal beats
@@ -387,6 +417,32 @@ DENSITY_POOL, DENSITY_QUERIES, DENSITY_RTOL = 2048, 16, 1e-6
 # first run on an H100.
 RL_SWEEP_ROUNDS = {"dynappo": 2, "dqn": 2}
 RL_DQN_SWEEP_LAUNCHES = 4003
+
+# Phase 14, the infrastructure modules.  (a, d) A 4-cell TF-Bind GA grid
+# (SIX6_REF_R1 x 2 starts x ss 0.9 x seeds {0, 1}, 2 rounds of 100
+# proposals; model queries cut from 2,000 to 500 a round: on the 4^8
+# space GA runs out of novel children, and a round takes many
+# generations) through the CLI without a mesh, on a one-rank mesh with
+# checkpoints (twice: the rerun resumes) and over two torchrun ranks that
+# share the card; the CLI's fast path as a program (SIX6_REF_R1, 1 start,
+# 2 rounds, 100 x 2000).
+INFRA_GA_GRID = ["--landscapes", "SIX6_REF_R1", "--starts", "2", "--signal-strengths", "0.9",
+                 "--seeds", "0", "1", "--rounds", "2", "--batch", "100", "--queries", "500",
+                 "--algorithm", "ga"]
+INFRA_FAST_PATH = ["--landscapes", "SIX6_REF_R1", "--starts", "1", "--signal-strengths", "0.9",
+                   "--rounds", "2", "--batch", "100", "--queries", "2000"]
+INFRA_SUBPROCESS_TIMEOUT_S = 300
+# (b) A CNN at 3MSI's width (66 x 20, 32 filters, hidden 100) fit twice on
+# 512 seeded rows, against a fit stopped after its first call, saved,
+# loaded into another model and resumed; then host Adalead + NAM 0.9 on
+# L100_RNA1 from start 1 (100 x 2000), 2 rounds resumed to 3.
+INFRA_FIT_ROWS, INFRA_FIT_EPOCHS = 512, 2
+INFRA_RESUME_ROUNDS = (2, 3)
+# (e) The native library against the card: Rosetta 3msi on 1,024 seeded
+# rows and the wild type, the duplex DP on 100 seeded L100_RNA1 rows.
+NATIVE_ROSETTA_ROWS, NATIVE_DUPLEX_ROWS = 1024, 100
+NATIVE_ROSETTA_TOL = dict(rtol=1e-4, atol=1e-5)
+NATIVE_DUPLEX_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 def card_line() -> str:
@@ -1103,8 +1159,8 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
           f"[{card}]")
 
     steps.append(("d sweep", time.perf_counter()))
-    # d. A generic sweep over 2 of the 3 starts (cut from 3 since phase 12
-    # came, PERF.md, Cells), one cell after another: in lockstep every step
+    # d. A generic sweep over GFP_SWEEP_STARTS of the 3 starts (cut since
+    # phases 12 and 14 came, PERF.md, Cells), "map": in lockstep every step
     # scores all cells' rows, which costs the oracle-bound GFP run about 3x
     # (194 s for 3 cells at 2 rounds on an H100, PERF.md).
     torch.cuda.reset_peak_memory_stats()
@@ -1982,6 +2038,86 @@ def captured_ppo_train():
         ppo_runner._PPORun.train = train
 
 
+@contextlib.contextmanager
+def captured_dqn_burst():
+    """The last fused DQN burst run inside the block: its inputs and result, on the card.
+
+    Yields a dict that gets, for the first cell that trains in the burst,
+    the Q network's flat weights before and after, the replay ring, the
+    burst's settings and the state of the cell's generator as the burst
+    starts (the burst draws its samples from it).  Device copies only, so
+    the run takes no host sync; each burst overwrites the last one's.
+    """
+    from flexs_tpu_torch.runtime import dqn_runner
+
+    seen = {}
+    burst = dqn_runner._DQNRun.burst
+    ring = ("mem_obs", "mem_next", "mem_act", "mem_act_val", "mem_rew", "mem_prio")
+
+    def capturing_burst(self, gens):
+        if not gens:
+            return burst(self, gens)
+        c, g = gens[0]
+        seen.update(
+            gen_state=g.get_state(), before=self.flats[c].detach().clone(),
+            ring={name: getattr(self, name)[c].clone() for name in ring},
+            n=self.mem_n[c].clone(),
+            run=dict(L=self.L, A=self.cfg.alphabet_size, B=self.cfg.sequences_batch_size,
+                     M=self.memory_size, train_epochs=self.train_epochs, gamma=self.gamma),
+        )
+        burst(self, gens)
+        seen["after"] = self.flats[c].detach().clone()
+
+    dqn_runner._DQNRun.burst = capturing_burst
+    try:
+        yield seen
+    finally:
+        dqn_runner._DQNRun.burst = burst
+
+
+def dqn_burst_card_vs_cpu(seen: dict) -> dict:
+    """Run the captured DQN burst again on the CPU and hold the card's weights to it.
+
+    The samples' uniforms are drawn again on the card from a copy of the
+    cell's generator, so the CPU replays the same draws; the sampling
+    (`per_indices`) and the 20 training steps run on the CPU.
+    """
+    from flexs_tpu_torch.baselines.explorers.dqn import QNetwork, train_step
+    from flexs_tpu_torch.baselines.models.torch_model import (
+        adam_init, flatten_parameters, one_hot,
+    )
+    from flexs_tpu_torch.runtime.dqn_runner import per_indices
+
+    run = seen["run"]
+    L, A, B, M = run["L"], run["A"], run["B"], run["M"]
+    dim = L * A
+    ring = {k: v.cpu() for k, v in seen["ring"].items()}
+    n = seen["n"].cpu()
+    assert int(n) >= B, f"the captured burst was not kept ({int(n)} transitions < {B})"
+    before = seen["before"].cpu()
+    net = QNetwork(L, A, torch.Generator())
+    flat = flatten_parameters(net)
+    with torch.no_grad():
+        flat.copy_(before)
+    opt_state = adam_init(flat[None])
+    gen = torch.Generator(device="cuda")
+    gen.set_state(seen["gen_state"])
+    for _ in range(run["train_epochs"]):
+        u = torch.empty(B, device="cuda").uniform_(0, 1, generator=gen).cpu()
+        idx = per_indices(ring["mem_prio"][:M], n, u)
+        obs = one_hot(ring["mem_obs"][idx], A).reshape(B, dim)
+        nxt = one_hot(ring["mem_next"][idx], A).reshape(B, dim)
+        acts = one_hot(ring["mem_act"][idx], dim) * ring["mem_act_val"][idx][:, None]
+        train_step(net, opt_state, obs, acts, ring["mem_rew"][idx], nxt, run["gamma"])
+    card = seen["after"].cpu()
+    step, diff = flat.detach() - before, card - flat.detach()
+    rel = float(diff.norm() / flat.norm())
+    assert float(step.norm()) > 0 and rel <= DQN_BURST_RTOL, rel
+    return {"steps": run["train_epochs"], "transitions": int(n), "weights": flat.numel(),
+            "rel_diff": rel, "rel_diff_to_update": float(diff.norm() / step.norm()),
+            "update_norm": float(step.norm()), "max_abs_diff": float(diff.abs().max())}
+
+
 def ppo_train_card_vs_cpu(seen: dict) -> dict:
     """Run the captured PPO update again on the CPU and hold the card's result to it."""
     import types
@@ -2045,13 +2181,15 @@ def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
         runner = cls(land, flexs.AAS, starting_sequence=start, model="perfect", seed=0,
                      rounds=rounds, **run, **kwargs.get(name, {}))
         cuda_duplex.reset_launch_counts()
-        with timed_dqn_bursts() as bursts, captured_ppo_train() as ppo_train:
+        with timed_dqn_bursts() as bursts, captured_dqn_burst() as dqn_burst, \
+                captured_ppo_train() as ppo_train:
             df, reading = fused_run(runner, land)
         no_duplex_launches(cuda_duplex, f"13a {name}")
         if name == "dqn":
             burst_s = sum(a.elapsed_time(b) for a, b in bursts) / 1e3
             reading.update(bursts=len(bursts), burst_s=burst_s,
-                           burst_share=burst_s / reading["wall_s"])
+                           burst_share=burst_s / reading["wall_s"],
+                           burst_card_vs_cpu=dqn_burst_card_vs_cpu(dqn_burst))
         # The DynaPPO runners' experiment phases score on the landscape too.
         measured = land.cost if name in ("dqn", "ppo") else len(df)
         assert df["measurement_cost"].iloc[-1] == len(df) == measured
@@ -2183,6 +2321,274 @@ def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     print(f"phase 13 step walls (s): {json.dumps(walls)}")
     return {"paper_3msi": paper, "l100": l100, "density": density, "sweeps": sweeps,
             "step_walls_s": walls}
+
+
+def start_cli(argv, out: str, ranks: int = 1) -> subprocess.Popen:
+    """`python -m flexs_tpu_torch.cli` as a program (under torchrun for several ranks).
+
+    It leads a new process group (so `stop` ends its whole process tree),
+    with its output in `<out>.log`.
+    """
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, (
+        root, os.environ.get("PYTHONPATH"))))}
+    launcher = [] if ranks == 1 else ["-m", "torch.distributed.run", "--standalone",
+                                      "--nproc-per-node", str(ranks)]
+    with open(out + ".log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, *launcher, "-m", "flexs_tpu_torch.cli", *argv, "--out", out],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+        )
+
+
+def stop(proc: subprocess.Popen) -> None:
+    """Kill a started program's whole process tree if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+
+
+def finish(proc: subprocess.Popen, out: str, what: str) -> str:
+    """The output of a program started by `start_cli`, which must exit 0 in time."""
+    try:
+        proc.wait(timeout=INFRA_SUBPROCESS_TIMEOUT_S)
+    finally:
+        stop(proc)
+    log = read_text(out + ".log")
+    assert proc.returncode == 0, f"{what} exited {proc.returncode}:\n{log[-4000:]}"
+    return log
+
+
+def read_text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def infrastructure_phases(flexs, cuda_duplex, card: str, kernel_ms_b100: float) -> dict:
+    """Phase 14 (a-e): mesh=, checkpointing, profiling, the CLI and the native binding."""
+    import tempfile
+
+    import pandas as pd
+    import torch.distributed as dist
+    from flexs_tpu_torch import cli, native
+    from flexs_tpu_torch.landscapes import rna, rosetta
+    from flexs_tpu_torch.ops import rna_duplex as rd
+    from flexs_tpu_torch.utils import checkpointing, profiling
+
+    steps = [("a d programs started", time.perf_counter())]
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {name: os.path.join(tmp, f"{name}.csv")
+               for name in ("no_mesh", "one_rank", "resumed", "two_ranks", "fast", "fast_here")}
+        ckpt = os.path.join(tmp, "ckpt")
+        # a, d. The programs run beside the in-process work; the card is shared.
+        programs = {"two_ranks": start_cli(INFRA_GA_GRID, out["two_ranks"], ranks=2),
+                    "fast": start_cli(INFRA_FAST_PATH, out["fast"])}
+        try:
+            steps.append(("a in-process grid", time.perf_counter()))
+            walls = {}
+            for name, extra in (("no_mesh", ["--no-mesh"]),
+                                ("one_rank", ["--chunk-size", "2", "--checkpoint-dir", ckpt]),
+                                ("resumed", ["--chunk-size", "2", "--checkpoint-dir", ckpt])):
+                if name == "resumed":
+                    chunks = {f: os.stat(os.path.join(ckpt, f)).st_mtime_ns
+                              for f in sorted(os.listdir(ckpt)) if f.endswith(".npz")}
+                (rc, walls[name]) = timed(lambda: cli.main(INFRA_GA_GRID + extra
+                                                            + ["--out", out[name]]))
+                assert rc == 0, name
+            assert len(chunks) == 2, chunks
+            assert {f: os.stat(os.path.join(ckpt, f)).st_mtime_ns for f in chunks} == chunks, \
+                "the rerun rewrote a checkpoint"
+            grid = read_text(out["no_mesh"])
+            for name in ("one_rank", "resumed"):
+                assert read_text(out[name]) == grid, f"the {name} CSV differs from mesh=None"
+            frame = pd.read_csv(out["no_mesh"])
+            assert len(frame) == 4 and np.isfinite(frame["max_fitness"]).all()
+            assert (frame["max_fitness"] >= frame["start_fitness"]).all()
+            assert cli.main(INFRA_FAST_PATH + ["--no-mesh", "--out", out["fast_here"]]) == 0
+            readings["cli_grid"] = {"walls_s": walls, "mean_max_fitness":
+                                    float(frame["max_fitness"].mean())}
+
+            # b. save_state/load_state mid-fit on the card, then resume_explorer.
+            steps.append(("b state", time.perf_counter()))
+            readings["state"] = resumed_fit_on_card(flexs, checkpointing, tmp)
+            steps.append(("b resume_explorer", time.perf_counter()))
+            readings["resume_explorer"] = resumed_host_run(flexs, cuda_duplex, checkpointing, tmp)
+
+            # e. The native library against the card.
+            steps.append(("e native", time.perf_counter()))
+            readings["native"] = native_vs_card(flexs, cuda_duplex, native, rna, rosetta, rd)
+
+            steps.append(("a d programs", time.perf_counter()))
+            logs = {name: finish(proc, out[name], name) for name, proc in programs.items()}
+        finally:
+            for proc in programs.values():
+                stop(proc)
+        assert read_text(out["two_ranks"]) == grid, "the two ranks' CSV differs from mesh=None"
+        assert logs["two_ranks"].count("4 cells on 2 device(s)") == 2, logs["two_ranks"][-2000:]
+        assert read_text(out["fast"]) == read_text(out["fast_here"]), \
+            "the fast path as a program differs from the same call in this process"
+        fast = pd.read_csv(out["fast"])
+        assert len(fast) == 1 and fast["max_fitness"].iloc[0] >= fast["start_fitness"].iloc[0]
+        readings["cli_grid"]["two_ranks"] = "== mesh=None (CSV bytes)"
+        readings["cli_fast_path"] = {"max_fitness": float(fast["max_fitness"].iloc[0]),
+                                     "model_cost": int(fast["model_cost"].iloc[0])}
+
+        # c. Profiling, with the card to this process alone.
+        steps.append(("c profiling", time.perf_counter()))
+        readings["profiling"] = profiling_on_card(flexs, cuda_duplex, profiling, rna, tmp,
+                                                  kernel_ms_b100)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 14 step walls (s): {json.dumps(walls)}")
+    readings["step_walls_s"] = walls
+    print(f"infrastructure: CLI GA grid (4 cells) == over a one-rank mesh == resumed from its "
+          f"checkpoints == over two torchrun ranks sharing the card (CSV bytes); fast path as a "
+          f"program == in process: {json.dumps(readings['cli_fast_path'])} [{card}]")
+    return readings
+
+
+def resumed_fit_on_card(flexs, checkpointing, tmp: str) -> dict:
+    """A CNN fit resumed from `save_state` equals the uninterrupted fit bitwise."""
+    rng = np.random.default_rng(SEED)
+    seqs = ["".join(rng.choice(list(flexs.AAS), 66)) for _ in range(INFRA_FIT_ROWS)]
+    labels = rng.random(INFRA_FIT_ROWS)
+
+    def cnn(seed):
+        return flexs.baselines.models.CNN(66, 32, 100, flexs.AAS, epochs=INFRA_FIT_EPOCHS,
+                                          seed=seed)
+
+    whole = cnn(0)
+    whole.train(seqs, labels)
+    whole.train(seqs, labels)
+    first = cnn(0)
+    first.train(seqs, labels)
+    path = os.path.join(tmp, "fit", "state.pt")
+    template = {"adam": first._state, "generator": first._generator}
+    checkpointing.save_state(path, template)
+    resumed = cnn(1)  # other weights and draws, all replaced by the checkpoint's
+    state = checkpointing.load_state(path, template=template)
+    assert state["adam"].params.device == first._state.params.device
+    assert state["generator"].device == first._generator.device
+    resumed._state, resumed._generator = state["adam"], state["generator"]
+    resumed.train(seqs, labels)
+    for name, a, b in zip(whole._state._fields, whole._state, resumed._state):
+        assert torch.equal(a, b), f"the resumed fit's {name} differs from the whole fit's"
+    preds = resumed.get_fitness(seqs[:100])
+    assert np.array_equal(preds, whole.get_fitness(seqs[:100])) and np.isfinite(preds).all()
+    return {"weights": int(whole._state.params.numel()), "adam_count":
+            int(whole._state.count[0]), "file_bytes": os.path.getsize(path)}
+
+
+def resumed_host_run(flexs, cuda_duplex, checkpointing, tmp: str) -> dict:
+    """Host Adalead + NAM on L100_RNA1, resumed from its log from 2 rounds to 3.
+
+    The logged rounds stay as they were, the resumed round measures
+    through the duplex kernel, and every round's true_score equals
+    `get_fitness` of that round's rows as one batch.
+    """
+    import pandas as pd
+    from flexs_tpu_torch.landscapes import rna
+
+    problem = rna.registry()["L100_RNA1"]
+    start = problem["starts"][1]
+    log = os.path.join(tmp, "host", "run.csv")
+    partial_rounds, rounds = INFRA_RESUME_ROUNDS
+
+    def explorer(land, n_rounds, log_file=None):
+        model = flexs.baselines.models.NoisyAbstractModel(land, 0.9, seed=0)
+        return flexs.baselines.explorers.Adalead(
+            model, rounds=n_rounds, sequences_batch_size=100, model_queries_per_batch=2000,
+            starting_sequence=start, alphabet=flexs.RNAA, seed=0, log_file=log_file)
+
+    land = rna.RNABinding(**problem["params"])
+    explorer(land, partial_rounds, log).run(land, verbose=False)
+    partial, _ = checkpointing.load_run(log)
+    land = rna.RNABinding(**problem["params"])
+    cuda_duplex.reset_launch_counts()
+    (df, _), wall = timed(lambda: checkpointing.resume_explorer(
+        explorer(land, rounds), land, log, verbose=False))
+    launches = path_launches(cuda_duplex, "resumed host")
+    pd.testing.assert_frame_equal(df.iloc[: len(partial)], partial)
+    assert df["round"].max() == rounds and len(df) > len(partial)
+    check = rna.RNABinding(**problem["params"])
+    for r in range(rounds + 1):
+        rows = df[df["round"] == r]
+        truth = check.get_fitness(rows["sequence"].tolist())
+        assert np.array_equal(rows["true_score"].to_numpy(), truth), f"round {r}"
+    return {"wall_s": wall, "duplex_launches": launches, "rows": len(df),
+            "top": float(df["true_score"].max()),
+            "resumed_round_top": float(df.loc[df["round"] == rounds, "true_score"].max())}
+
+
+def native_vs_card(flexs, cuda_duplex, native, rna, rosetta, rd) -> dict:
+    """The g++-built native scorers against the card: Rosetta 3msi and the duplex kernel."""
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    land = rosetta.RosettaFolding(**rosetta.registry()["3msi"]["params"])
+    aa = flexs.Alphabet(flexs.AAS)
+    tokens = np.concatenate([rng.integers(0, 20, (NATIVE_ROSETTA_ROWS, len(land.wt_sequence))),
+                             aa.encode([land.wt_sequence])])
+    on_card = land.fitness_from_tokens(tokens).cpu().numpy()
+    host = native.rosetta_score_batch(land, tokens)
+    np.testing.assert_allclose(host, on_card, **NATIVE_ROSETTA_TOL)
+    problem = rna.registry()["L100_RNA1"]["params"]
+    rland = rna.RNABinding(**problem)
+    plan = rland.device_fitness()[1].plan
+    target = flexs.Alphabet(flexs.RNAA).encode_one(problem["targets"][0])
+    assert torch.equal(plan.targets_rev[0].cpu(), torch.as_tensor(target).flip(0))
+    seqs = rng.integers(0, 4, (NATIVE_DUPLEX_ROWS, 100))
+    before = cuda_duplex.launches
+    kernel = cuda_duplex.duplex_energies(torch.as_tensor(seqs, device="cuda"), plan.targets_rev,
+                                         plan.em, rland.params.maxloop)[:, 0].cpu().numpy()
+    assert cuda_duplex.launches == before + 1, "duplex_energies did not launch the kernel once"
+    host_e = native.rna_duplex_energy_batch(seqs, target, rland.params)
+    np.testing.assert_allclose(host_e, kernel, **NATIVE_DUPLEX_TOL)
+    assert np.isfinite(kernel).all() and (kernel < 0).all()
+    return {"build_s": build_s, "rosetta_rows": len(tokens),
+            "rosetta_max_abs_diff": float(np.abs(host - on_card).max()),
+            "duplex_rows": NATIVE_DUPLEX_ROWS, "duplex_launches": 1,
+            "duplex_max_abs_diff": float(np.abs(host_e - kernel).max()),
+            "duplex_max_rel_diff": float((np.abs(host_e - kernel) / np.abs(kernel)).max())}
+
+
+def profiling_on_card(flexs, cuda_duplex, profiling, rna, tmp: str, kernel_ms_b100: float) -> dict:
+    """`amortized_seconds_per_call` of the kernel at B=100, and a traced fused round."""
+    problem = rna.registry()["L100_RNA1"]
+    land = rna.RNABinding(**problem["params"])
+    plan = land.device_fitness()[1].plan
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, 4, (100, 100)), device="cuda")
+    amortized_ms = profiling.amortized_seconds_per_call(
+        cuda_duplex.launch_plan, plan, tokens, reps=100) * 1e3
+    runner = flexs.runtime.DeviceAdaleadNAM(
+        land, flexs.RNAA, rounds=1, sequences_batch_size=100, model_queries_per_batch=2000,
+        starting_sequence=problem["starts"][1], signal_strength=0.9, seed=0)
+    trace_dir = os.path.join(tmp, "trace")
+    cuda_duplex.reset_launch_counts()
+    with profiling.trace(trace_dir):
+        df, _ = runner.run(verbose=False)
+        torch.cuda.synchronize()
+    launches = path_launches(cuda_duplex, "traced fused round")
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    duplex = [e for e in kernels if "duplex_dp" in e.get("name", "")]
+    assert duplex, f"the trace names no duplex kernel ({len(kernels)} kernel events)"
+    assert df["round"].max() == 1
+    reading = {"amortized_ms_b100": amortized_ms, "phase2_cuda_event_median_ms_b100":
+               kernel_ms_b100, "trace_events": len(events), "trace_kernel_events": len(kernels),
+               "trace_duplex_events": len(duplex), "trace_duplex_name": duplex[0]["name"],
+               "traced_round_duplex_launches": launches,
+               "trace_duplex_device_ms": sum(e.get("dur", 0) for e in duplex) / 1e3}
+    print(f"profiling: amortized_seconds_per_call of the duplex kernel at B=100 "
+          f"{amortized_ms} ms beside phase 2's CUDA-event median {kernel_ms_b100} ms; "
+          f"a traced fused round: {json.dumps(reading)} [{card_line()}]")
+    return reading
 
 
 def clock_line() -> str:
@@ -2422,12 +2828,17 @@ def main() -> int:
     rl_readings = rl_runner_phases(flexs, cuda_duplex, card, explorer_readings["paper_3msi"])
     print(f"rl runner readings: {json.dumps(rl_readings)}")
 
+    stamps.append(("14 infrastructure", time.perf_counter()))
+    # 14. mesh=, checkpointing, profiling, the CLI and the native binding.
+    infra_readings = infrastructure_phases(flexs, cuda_duplex, card, timings[100]["ms"])
+    print(f"infrastructure readings: {json.dumps(infra_readings)}")
+
     # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 14. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 15. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -2447,6 +2858,9 @@ def main() -> int:
         "fused_l100_ppo_launches": rl_readings["l100"]["ppo"]["duplex_launches"],
         "fused_l100_dynappo_launches": rl_readings["l100"]["dynappo"]["duplex_launches"],
         "fused_dqn_sweep_launches": rl_readings["sweeps"]["dqn_l100"]["duplex_launches"],
+        "resumed_host_launches": infra_readings["resume_explorer"]["duplex_launches"],
+        "traced_round_launches": infra_readings["profiling"]["traced_round_duplex_launches"],
+        "native_check_launches": infra_readings["native"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

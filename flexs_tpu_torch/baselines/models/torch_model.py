@@ -329,25 +329,38 @@ def flat_grad(loss: torch.Tensor, module: nn.Module) -> torch.Tensor:
 
 def minibatch_step(module: nn.Module, state: AdamState, xb, yb, wb, lr: float,
                    loss: Callable = mse_loss, skip_empty: bool = False,
-                   dropout_mask: Optional[torch.Tensor] = None):
+                   dropout_mask: Optional[torch.Tensor] = None, data_parallel: bool = False):
     """(new state, per-net loss f32[nets]) of one weighted minibatch per net.
 
     xb f32[nets, bs, L, A], yb and wb f32[nets, bs].  Each net's loss is
     sum(loss * w) / (sum(w) + 1e-9).  With `skip_empty`, a net whose
     minibatch has no weight keeps its state (a true no-op).
+
+    With `data_parallel`, the rows are this rank's share of the minibatch:
+    the weight sum is all-reduced first, so each rank's loss is its rows'
+    share of the global loss, and the ranks all-reduce (sum) the gradients
+    and the losses.  Unequal shares still give the global mean; with one
+    rank every value is the unsharded one, bit for bit.
     """
+    if data_parallel:
+        from flexs_tpu_torch.parallel.multihost import all_reduce_sum  # imports this package
+
     params = state.params.detach().requires_grad_()
     preds = forward_flat(module, params, xb, dropout_mask)
     wsum = wb.sum(dim=1)
+    if data_parallel:
+        wsum = all_reduce_sum(wsum)
     per_net = (loss(preds, yb) * wb).sum(dim=1) / (wsum + 1e-9)
     (grads,) = torch.autograd.grad(per_net.sum(), params)
+    if data_parallel:
+        grads, per_net = all_reduce_sum(grads), all_reduce_sum(per_net)
     keep = wsum > 0 if skip_empty else None
     return adam_step(state, grads, lr, keep), per_net.detach()
 
 
 def fit(module: nn.Module, state: AdamState, x, y, w, generators: Sequence[torch.Generator],
         epochs: int, batch_size: int, lr: float, loss: Callable = mse_loss,
-        skip_empty: bool = False):
+        skip_empty: bool = False, mesh=None):
     """Warm-started multi-epoch fit of C x M nets; returns (state, losses f32[epochs, nets]).
 
     x f32[C, R, L, A], y and w f32[C, R], R a multiple of `batch_size`.
@@ -355,7 +368,19 @@ def fit(module: nn.Module, state: AdamState, x, y, w, generators: Sequence[torch
     per epoch a permutation of the R rows for each of the cell's M nets,
     then per minibatch, if the module has dropout, the cell's masks
     [M, batch_size, features].  A cell's draws are the same whatever C is.
+
+    With a `mesh` (a `DeviceMesh` over every rank, each holding the same
+    data and generators), each rank takes its contiguous share of each
+    minibatch's rows and the ranks all-reduce the gradients
+    (`minibatch_step(data_parallel=True)`): the counterpart of the JAX
+    package's data-parallel fit.
     """
+    lo, hi = 0, batch_size
+    if mesh is not None:
+        from flexs_tpu_torch.parallel.multihost import mesh_share  # imports this package
+
+        position, size = mesh_share(mesh)
+        lo, hi = position * batch_size // size, (position + 1) * batch_size // size
     dev = x.device
     cells, rows = w.shape
     nets = state.params.shape[0]
@@ -371,17 +396,17 @@ def fit(module: nn.Module, state: AdamState, x, y, w, generators: Sequence[torch
         batches = torch.stack(perms).view(nets, num_batches, batch_size)
         epoch_losses = []
         for s in range(num_batches):
-            idx = batches[:, s]
+            idx = batches[:, s, lo:hi]
             mask = None
             if features is not None:
                 draws = [
                     torch.empty((members, batch_size, features), device=dev).uniform_(generator=g)
                     for g in generators
                 ]
-                mask = torch.cat(draws) < module.keep_prob
+                mask = torch.cat(draws)[:, lo:hi] < module.keep_prob
             state, batch_loss = minibatch_step(
                 module, state, x[cell_of_net, idx], y[cell_of_net, idx], w[cell_of_net, idx],
-                lr, loss, skip_empty, mask,
+                lr, loss, skip_empty, mask, data_parallel=mesh is not None,
             )
             epoch_losses.append(batch_loss)
         losses.append(torch.stack(epoch_losses).mean(dim=0))
@@ -420,7 +445,13 @@ class TorchModel(Model):
             learning_rate: Adam learning rate (Keras default 1e-3).
             loss: Per-sample loss `(preds, labels) -> losses`.
             seed: Seed of the model's generator (init, shuffles, dropout).
-            mesh: Not ported (ROADMAP.md, item 17); must be None.
+            mesh: Optional `DeviceMesh` over every rank
+                (`parallel.multihost.multihost_sweep_mesh`) for a
+                data-parallel fit: every rank trains on the same data from
+                the same seed, takes its share of each minibatch, and the
+                ranks all-reduce the gradients (`fit`), so every rank holds
+                the same weights.  With one rank the fit is the unsharded
+                one, bit for bit.
             custom_train_function: Optional override called as
                 `(one_hots, labels)` instead of the built-in fit (reference
                 keras_model.py:33-36).
@@ -431,10 +462,10 @@ class TorchModel(Model):
         """
         super().__init__(name)
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel fits over several devices) is not ported yet "
-                "(ROADMAP.md, item 17)"
-            )
+            from flexs_tpu_torch.parallel.multihost import mesh_share  # imports this package
+
+            mesh_share(mesh)  # a mesh that is not a DeviceMesh over every rank raises
+        self.mesh = mesh
         self.module = module
         self.alphabet = as_alphabet(alphabet)
         self.batch_size = batch_size
@@ -477,6 +508,7 @@ class TorchModel(Model):
         self._state, losses = fit(
             self.module, self._state, self._one_hot(padded)[None], y[None], w[None],
             [self._generator], self.epochs, self.batch_size, self.learning_rate, self.loss,
+            mesh=self.mesh,
         )
         if verbose:
             print(f"{self.name}: epoch losses {losses[:, 0].cpu().numpy()}")

@@ -20,7 +20,7 @@ eigenvectors whose signs (and, for ties, order) differ from XLA's; the
 covariance B diag(d^2) B^T they describe is the same.
 """
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,11 +104,17 @@ def ask(state: CMAState, generator: torch.Generator, popsize: int) -> torch.Tens
     return sample(state, z)
 
 
-def tell(state: CMAState, solutions, fitnesses) -> CMAState:
-    """Update the state from evaluated solutions (minimization)."""
+def tell(state: CMAState, solutions, fitnesses, popsize: Optional[int] = None) -> CMAState:
+    """Update the state from evaluated solutions (minimization).
+
+    `popsize` (JAX's static argument) is the number of rows of `solutions`;
+    a `popsize` that is given and differs raises ValueError.
+    """
     dev = state.mean.device
     solutions = torch.as_tensor(solutions, dtype=torch.float32, device=dev)
     fitnesses = torch.as_tensor(fitnesses, dtype=torch.float32, device=dev)
+    if popsize is not None and popsize != solutions.shape[0]:
+        raise ValueError(f"popsize {popsize} != {solutions.shape[0]} solutions")
     popsize, n = solutions.shape
     hp = _hyperparams(n, popsize)
     weights = torch.as_tensor(hp["weights"], device=dev)

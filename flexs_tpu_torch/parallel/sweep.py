@@ -23,6 +23,13 @@ Two engines share the chunking, checkpoints and summary:
     (an RNABinding landscape's params hold its kernel plan): a chunk's
     cells are grouped by landscape, and each landscape's own oracle scores
     its cells' rows, one call per landscape present.
+
+With `mesh=` (a `parallel.multihost.multihost_sweep_mesh()` of several
+ranks), each chunk of cells is split over the mesh's ranks: every rank
+runs its share in lockstep, and the chunk's result is gathered to every
+rank, as in the JAX package (the cells are padded by wrapping to a
+multiple of the mesh's size, and the padding is dropped).  Since a cell's
+result is its own, a mesh of any size gives the `mesh=None` frame bitwise.
 """
 import dataclasses
 import hashlib
@@ -37,6 +44,7 @@ import torch
 from flexs_tpu_torch.alphabet import Alphabet, as_alphabet
 from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.landscapes import tf_binding
+from flexs_tpu_torch.parallel import multihost
 from flexs_tpu_torch.runtime import surrogate as surrogate_lib
 from flexs_tpu_torch.runtime.bo_runner import run_bo_nam_cells
 from flexs_tpu_torch.runtime.cbas_runner import VAEConfig, run_cbas_nam_cells
@@ -146,35 +154,64 @@ def _run_chunk(fitness_fn, cell_params: Callable, start_tokens, signal_strengths
     return RunResult(*(torch.cat(xs) for xs in zip(*outs)))
 
 
+def _pad_cells_to_mesh(size: int, idx: np.ndarray) -> np.ndarray:
+    """Cell indices padded to a multiple of the mesh's size by wrapping.
+
+    Wrapping pads grids smaller than the mesh fully; the padding repeats
+    real cells, and their rows are dropped.
+    """
+    pad = (-len(idx)) % size
+    return np.concatenate([idx, idx[np.arange(pad) % len(idx)]]) if pad else idx
+
+
 def _run_in_chunks(n: int, chunk_size: Optional[int], checkpoint_dir: Optional[str],
-                   signature: Callable, run_chunk: Callable) -> RunResult:
+                   signature: Callable, run_chunk: Callable, mesh=None) -> RunResult:
     """RunResult (numpy, leading cell axis) of n cells, `run_chunk(cell indices)` per chunk.
 
     The tail chunk is padded to `chunk_size` by repeating cell 0, and the
     padding is dropped.  With `checkpoint_dir`, each finished chunk is
     saved and a rerun of the same sweep (`signature(chunk_size)`) loads it.
+    With a `mesh`, `chunk_size` is rounded up to a multiple of its size,
+    each chunk is split over its ranks, and its result is gathered to every
+    rank; the mesh's first rank alone decides whether a chunk is on disk
+    and alone writes checkpoints, so the chunk files do not depend on the
+    world size.
     """
+    position, size = multihost.mesh_share(mesh)
+    if chunk_size is not None:
+        chunk_size = -(-chunk_size // size) * size
     if chunk_size is None or chunk_size >= n:
         chunk_size = None  # one exact-size batch, no padding
         chunks = [(0, n)]
     else:
         chunks = [(i, min(i + chunk_size, n)) for i in range(0, n, chunk_size)]
+    writer = position == 0
     if checkpoint_dir is not None:
-        _init_checkpoint_dir(checkpoint_dir, signature(chunk_size))
+        _init_checkpoint_dir(checkpoint_dir, signature(chunk_size), writer)
 
     results = []
     for ci, (lo, hi) in enumerate(chunks):
         if checkpoint_dir is not None:
             chunk_path = _checkpoint_chunk_path(checkpoint_dir, ci)
-            if os.path.exists(chunk_path):
+            # Every rank must take the same branch: follow the first rank's
+            # view (the load needs a file system that every rank shares).
+            if multihost.broadcast_from_first(os.path.exists(chunk_path), mesh):
                 with np.load(chunk_path) as data:
                     results.append(RunResult(**{k: data[k] for k in data.files}))
                 continue
         idx = np.arange(lo, hi)
         if chunk_size is not None and len(idx) < chunk_size:
             idx = np.concatenate([idx, np.zeros(chunk_size - len(idx), np.int64)])
-        out = RunResult(*(x[: hi - lo].cpu().numpy() for x in run_chunk(idx)))
-        if checkpoint_dir is not None:
+        if mesh is None:
+            out = [x.cpu().numpy() for x in run_chunk(idx)]
+        else:
+            idx = _pad_cells_to_mesh(size, idx)
+            share = len(idx) // size
+            out = multihost.gather_to_host(
+                run_chunk(idx[position * share:(position + 1) * share]), mesh
+            )
+        out = RunResult(*(x[: hi - lo] for x in out))
+        if checkpoint_dir is not None and writer:
             # A crash mid-save must not leave a readable partial chunk.
             tmp = chunk_path + ".tmp.npz"
             np.savez(tmp, **out._asdict())
@@ -192,12 +229,14 @@ def sweep_adalead_nam(
     signal_strengths,
     seeds,
     cfg: AdaleadConfig,
+    mesh=None,
     chunk_size: Optional[int] = None,
+    *,
     device=None,
     cell_mode: str = "vmap",
     checkpoint_dir: Optional[str] = None,
 ) -> RunResult:
-    """Run a flat batch of C sweep cells on one device.
+    """Run a flat batch of C sweep cells on one device, or split over a mesh of ranks.
 
     Args:
         tables: f32[num_landscapes, 4^L] stacked score tables (shared).
@@ -206,19 +245,24 @@ def sweep_adalead_nam(
         signal_strengths: f32[C] NAM alpha per cell.
         seeds: int[C] generator seed per cell.
         cfg: Adalead configuration (the same for every cell).
+        mesh: Optional `DeviceMesh` of ranks
+            (`parallel.multihost.multihost_sweep_mesh`): each chunk is
+            split over its ranks, and every rank gets the whole result.
         chunk_size: Run at most this many cells per lockstep batch (each
             cell carries O(rounds * queries) device buffers, so wide grids
             must be chunked to fit device memory).  The tail chunk is
             padded to `chunk_size` by repeating cell 0; the padding is
-            dropped.
-        device: Where the cells run (default "cuda").
+            dropped.  With a mesh it is rounded up to a multiple of the
+            mesh's size.
+        device: Where this rank's cells run (default "cuda").
         cell_mode: "vmap" runs a chunk's cells in lockstep; "map" runs them
             one by one through the same runner.  Results are identical.
         checkpoint_dir: Resume point: each finished chunk is written to
             `<dir>/chunk_<i>.npz`, and a rerun of the same sweep (same
             tables, grid, configuration and chunking, pinned by a signature
             in `<dir>/manifest.json`) loads it instead of running it.  A
-            different sweep in the same directory raises ValueError.
+            different sweep in the same directory raises ValueError.  With
+            a mesh, the mesh's first rank writes the files.
 
     Returns:
         `RunResult` of numpy arrays with a leading cell axis on every field.
@@ -244,7 +288,7 @@ def sweep_adalead_nam(
         lambda cs: _sweep_signature(
             "adalead", None, cfg, cs, tables, table_idx, start_tokens, signal_strengths, seeds
         ),
-        run_chunk,
+        run_chunk, mesh,
     )
 
 
@@ -359,8 +403,11 @@ def _checkpoint_chunk_path(checkpoint_dir: str, i: int) -> str:
     return os.path.join(checkpoint_dir, f"chunk_{i:05d}.npz")
 
 
-def _init_checkpoint_dir(checkpoint_dir: str, signature: str) -> None:
-    """Create the dir and pin the sweep signature; reject a mismatched resume."""
+def _init_checkpoint_dir(checkpoint_dir: str, signature: str, writer: bool) -> None:
+    """Create the dir and pin the sweep signature; reject a mismatched resume.
+
+    Only the `writer` (the mesh's first rank) writes the manifest.
+    """
     os.makedirs(checkpoint_dir, exist_ok=True)
     manifest = os.path.join(checkpoint_dir, "manifest.json")
     if os.path.exists(manifest):
@@ -379,7 +426,7 @@ def _init_checkpoint_dir(checkpoint_dir: str, signature: str) -> None:
                 "DIFFERENT sweep (landscapes/grid/model/budget changed); "
                 "clear it or point at a fresh directory"
             )
-    else:
+    elif writer:
         # Atomic write: a crash mid-write must not leave a truncated
         # manifest that poisons every future resume.
         tmp = manifest + ".tmp"
@@ -414,16 +461,14 @@ def _summary_df(result, cells) -> pd.DataFrame:
 
 
 def _check_options(mesh, algorithm, model, surrogate_spec, cell_mode) -> str:
-    """The cell mode "auto" resolves to; raises for options that are not ported or wrong.
+    """The cell mode "auto" resolves to; raises for a wrong option.
 
     "auto" is "map" for a trained surrogate (a chunk's cells would run
     their data-dependent loops in lockstep while each cell's training is
-    a fixed cost) and "vmap" otherwise, as in the JAX package.
+    a fixed cost) and "vmap" otherwise, as in the JAX package.  A mesh that
+    is not a `DeviceMesh` over every rank raises TypeError or ValueError.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sweeps over several devices) is not ported yet (ROADMAP.md, item 17)"
-        )
+    multihost.mesh_share(mesh)
     if algorithm not in CELL_RUNNERS:
         raise ValueError(f"unknown fused algorithm {algorithm!r}")
     if model not in ("nam", "perfect", "surrogate"):
@@ -472,16 +517,15 @@ def run_landscape_robustness_sweep(
     `signal_strengths` is ignored and should be `[1.0]`.  `cell_mode`
     "vmap" runs each chunk's cells in lockstep, "map" one by one (each a
     standalone run), "auto" picks "map" for a surrogate and "vmap"
-    otherwise; a cell's result is the same in every mode.  `chunk_size`
-    and `checkpoint_dir` are those of `sweep_adalead_nam`.
+    otherwise; a cell's result is the same in every mode.  `mesh`,
+    `chunk_size` and `checkpoint_dir` are those of `sweep_adalead_nam`.
 
     `algorithm` selects the fused explorer ("adalead", "random", "ga",
     "cmaes", "bo", "gpr_bo", "cbas", "dbas", "dqn", "ppo", "dynappo" or
     "dynappo_mutative"; another name raises ValueError) and
     `algorithm_kwargs` its hyperparameters over the JAX sweep's defaults
     (`CELL_RUNNERS`).  "dynappo" and "dynappo_mutative" take no trained
-    surrogate (ValueError, as in the JAX package).  Not ported yet, and
-    raising NotImplementedError: `mesh` (ROADMAP item 17).
+    surrogate (ValueError, as in the JAX package).
     """
     cell_mode = _check_options(mesh, algorithm, model, surrogate_spec, cell_mode)
     if model == "surrogate":
@@ -540,7 +584,7 @@ def run_landscape_robustness_sweep(
             algorithm, algorithm_kwargs, model, surrogate_spec, cfg, cs, landscapes, fitness_fn,
             land_idx, start_tokens, ss_arr, seed_arr, device,
         ),
-        run_chunk,
+        run_chunk, mesh,
     )
     return _summary_df(result, [(landscapes[li].name, st, ss, sd) for li, st, ss, sd in cells])
 
@@ -586,8 +630,9 @@ def run_robustness_sweep(
     each chunk in lockstep, "map" runs its cells one by one, "auto" picks
     "map" for a surrogate and "vmap" otherwise; scores are identical.  A
     surrogate or "map" sweep goes through `run_landscape_robustness_sweep`;
-    the others gather from the stacked score tables.  `chunk_size`,
-    `device` and `checkpoint_dir` are those of `sweep_adalead_nam`.
+    the others gather from the stacked score tables.  `mesh`,
+    `chunk_size`, `device` and `checkpoint_dir` are those of
+    `sweep_adalead_nam`.
     `algorithm` and `algorithm_kwargs` are those of
     `run_landscape_robustness_sweep`, through which every algorithm but
     Adalead with its defaults runs.
@@ -603,7 +648,7 @@ def run_robustness_sweep(
         return run_landscape_robustness_sweep(
             landscapes, alphabet, starts=starts, signal_strengths=list(signal_strengths),
             seeds=list(seeds), rounds=rounds, sequences_batch_size=sequences_batch_size,
-            model_queries_per_batch=model_queries_per_batch, chunk_size=chunk_size,
+            model_queries_per_batch=model_queries_per_batch, mesh=mesh, chunk_size=chunk_size,
             algorithm=algorithm, algorithm_kwargs=algorithm_kwargs, model=model,
             surrogate_spec=surrogate_spec, checkpoint_dir=checkpoint_dir, cell_mode=cell_mode,
             device=device,
@@ -632,8 +677,8 @@ def run_robustness_sweep(
         perfect_model=(model == "perfect"),
     )
     result = sweep_adalead_nam(
-        tables, table_idx, start_tokens, ss_arr, seed_arr, cfg,
-        chunk_size=chunk_size, device=device, checkpoint_dir=checkpoint_dir,
+        tables, table_idx, start_tokens, ss_arr, seed_arr, cfg, mesh, chunk_size,
+        device=device, checkpoint_dir=checkpoint_dir,
     )
     return _summary_df(result, cells)
 

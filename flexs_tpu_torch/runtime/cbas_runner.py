@@ -389,10 +389,19 @@ def run_cbas_nam_cells(
 
 def run_cbas_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                  cfg: AdaleadConfig, signal_strength: float, generator: torch.Generator,
-                 **kwargs) -> RunResult:
-    """One CbAS/DbAS experiment (`run_cbas_nam_cells` at C = 1, the same keywords)."""
-    return one_cell(run_cbas_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
-                    signal_strength, generator, **kwargs)
+                 vae_cfg: VAEConfig = VAEConfig(), algo: str = "cbas", Q: float = 0.7,
+                 cycle_batch_size: int = 100, mutation_rate: float = 0.2, *,
+                 cuda_graph: bool = True) -> RunResult:
+    """One CbAS/DbAS experiment (`run_cbas_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_cbas_nam_cells, fitness_fn, fitness_params, start_tokens, cfg, signal_strength,
+        generator, vae_cfg=vae_cfg, algo=algo, Q=Q, cycle_batch_size=cycle_batch_size,
+        mutation_rate=mutation_rate, cuda_graph=cuda_graph,
+    )
 
 
 class DeviceCbASNAM(DeviceRunner):

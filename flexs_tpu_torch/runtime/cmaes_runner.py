@@ -161,10 +161,18 @@ def run_cmaes_nam_cells(
 
 def run_cmaes_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                   cfg: AdaleadConfig, signal_strength: float, generator: torch.Generator,
-                  **kwargs) -> RunResult:
-    """One CMA-ES experiment (`run_cmaes_nam_cells` at C = 1, the same keywords)."""
-    return one_cell(run_cmaes_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
-                    signal_strength, generator, **kwargs)
+                  population_size: int = 15, max_iter: int = 400, initial_variance: float = 0.2,
+                  maximize: bool = False) -> RunResult:
+    """One CMA-ES experiment (`run_cmaes_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_cmaes_nam_cells, fitness_fn, fitness_params, start_tokens, cfg, signal_strength,
+        generator, population_size=population_size, max_iter=max_iter,
+        initial_variance=initial_variance, maximize=maximize,
+    )
 
 
 class DeviceCMAESNAM(DeviceRunner):

@@ -215,10 +215,16 @@ def run_dqn_nam_cells(
 
 def run_dqn_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                 cfg: AdaleadConfig, signal_strength: float, generator: torch.Generator,
-                **kwargs) -> RunResult:
-    """One DQN experiment (`run_dqn_nam_cells` at C = 1, the same keywords)."""
-    return one_cell(run_dqn_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
-                    signal_strength, generator, **kwargs)
+                memory_size: int = 4096, train_epochs: int = 20, gamma: float = 0.9) -> RunResult:
+    """One DQN experiment (`run_dqn_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_dqn_nam_cells, fitness_fn, fitness_params, start_tokens, cfg, signal_strength,
+        generator, memory_size=memory_size, train_epochs=train_epochs, gamma=gamma,
+    )
 
 
 class DeviceDQNNAM(DeviceRunner):

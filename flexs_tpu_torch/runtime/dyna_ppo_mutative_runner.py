@@ -281,10 +281,24 @@ def run_dyna_ppo_mutative_nam_cells(
 
 def run_dyna_ppo_mutative_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                               cfg: AdaleadConfig, signal_strength: float,
-                              generator: torch.Generator, **kwargs) -> RunResult:
-    """One mutative DynaPPO experiment (`run_dyna_ppo_mutative_nam_cells` at C = 1)."""
-    return one_cell(run_dyna_ppo_mutative_nam_cells, fitness_fn, fitness_params, start_tokens,
-                    cfg, signal_strength, generator, **kwargs)
+                              generator: torch.Generator, env_batch_size: int = 16,
+                              episode_len: int = 20, num_model_rounds: int = 1, train_epochs: int = 10,
+                              learning_rate: float = 3e-4, gamma: float = 0.99,
+                              gae_lambda: float = 0.95, clip_eps: float = 0.2,
+                              value_coef: float = 0.5, entropy_coef: float = 0.01,
+                              density_metric: str = "hamming") -> RunResult:
+    """One mutative DynaPPO experiment (`run_dyna_ppo_mutative_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_dyna_ppo_mutative_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
+        signal_strength, generator, env_batch_size=env_batch_size, episode_len=episode_len,
+        num_model_rounds=num_model_rounds, train_epochs=train_epochs, learning_rate=learning_rate,
+        gamma=gamma, gae_lambda=gae_lambda, clip_eps=clip_eps, value_coef=value_coef,
+        entropy_coef=entropy_coef, density_metric=density_metric,
+    )
 
 
 class DeviceDynaPPOMutativeNAM(DeviceRunner):

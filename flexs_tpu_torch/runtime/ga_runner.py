@@ -177,10 +177,22 @@ def run_ga_nam_cells(
 
 def run_ga_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                cfg: AdaleadConfig, signal_strength: float, generator: torch.Generator,
-               **kwargs) -> RunResult:
-    """One GeneticAlgorithm experiment (`run_ga_nam_cells` at C = 1, the same keywords)."""
-    return one_cell(run_ga_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
-                    signal_strength, generator, **kwargs)
+               population_size: int = 100, parent_selection_strategy: str = "wright-fisher",
+               children_proportion: float = 0.2,
+               parent_selection_proportion: Optional[float] = 0.3,
+               beta: float = 0.05) -> RunResult:
+    """One GeneticAlgorithm experiment (`run_ga_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_ga_nam_cells, fitness_fn, fitness_params, start_tokens, cfg, signal_strength,
+        generator, population_size=population_size,
+        parent_selection_strategy=parent_selection_strategy,
+        children_proportion=children_proportion,
+        parent_selection_proportion=parent_selection_proportion, beta=beta,
+    )
 
 
 class DeviceGeneticAlgorithmNAM(DeviceRunner):

@@ -282,10 +282,19 @@ def run_ppo_nam_cells(
 
 def run_ppo_nam(fitness_fn: Callable, fitness_params, start_tokens: torch.Tensor,
                 cfg: AdaleadConfig, signal_strength: float, generator: torch.Generator,
-                **kwargs) -> RunResult:
-    """One PPO experiment (`run_ppo_nam_cells` at C = 1, the same keywords)."""
-    return one_cell(run_ppo_nam_cells, fitness_fn, fitness_params, start_tokens, cfg,
-                    signal_strength, generator, **kwargs)
+                train_epochs: int = 10, learning_rate: float = 3e-4, gamma: float = 0.99,
+                gae_lambda: float = 0.95, clip_eps: float = 0.2, value_coef: float = 0.5,
+                entropy_coef: float = 0.01) -> RunResult:
+    """One PPO experiment (`run_ppo_nam_cells` at C = 1).
+
+    The hyperparameters follow the JAX function's order, positionally or by
+    keyword.
+    """
+    return one_cell(
+        run_ppo_nam_cells, fitness_fn, fitness_params, start_tokens, cfg, signal_strength,
+        generator, train_epochs=train_epochs, learning_rate=learning_rate, gamma=gamma,
+        gae_lambda=gae_lambda, clip_eps=clip_eps, value_coef=value_coef, entropy_coef=entropy_coef,
+    )
 
 
 class DevicePPONAM(DeviceRunner):

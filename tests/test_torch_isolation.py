@@ -7,7 +7,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "flexs_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "flexs_tpu"}
 
 
 def _port_files():
@@ -51,7 +51,9 @@ def test_port_sources_are_found():
                    "runtime/random_runner.py", "runtime/ga_runner.py", "runtime/cmaes_runner.py",
                    "runtime/bo_runner.py", "runtime/gpr_bo_runner.py", "runtime/cbas_runner.py",
                    "runtime/dqn_runner.py", "runtime/ppo_runner.py",
-                   "runtime/dyna_ppo_runner.py", "runtime/dyna_ppo_mutative_runner.py"):
+                   "runtime/dyna_ppo_runner.py", "runtime/dyna_ppo_mutative_runner.py",
+                   "parallel/multihost.py", "utils/checkpointing.py", "utils/profiling.py",
+                   "cli.py", "native.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -81,7 +83,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.runtime.bo_runner, flexs_tpu_torch.runtime.gpr_bo_runner, "
         "flexs_tpu_torch.runtime.cbas_runner, flexs_tpu_torch.runtime.dqn_runner, "
         "flexs_tpu_torch.runtime.ppo_runner, flexs_tpu_torch.runtime.dyna_ppo_runner, "
-        "flexs_tpu_torch.runtime.dyna_ppo_mutative_runner; "
+        "flexs_tpu_torch.runtime.dyna_ppo_mutative_runner, flexs_tpu_torch.parallel.multihost, "
+        "flexs_tpu_torch.utils.checkpointing, flexs_tpu_torch.utils.profiling, "
+        "flexs_tpu_torch.cli, flexs_tpu_torch.native; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

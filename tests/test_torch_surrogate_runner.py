@@ -236,7 +236,8 @@ def test_custom_train_and_predict_functions():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """`mesh=` is ported (ROADMAP item 17); a mesh that is not a DeviceMesh raises at once."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         models.MLP(8, hidden_size=8, alphabet=DNA, mesh=object(), device="cpu")
 
 
@@ -412,10 +413,11 @@ def test_efficiency_and_adaptivity_with_a_surrogate():
     assert (ada["max_fitness"] >= ada["start_fitness"]).all() and (ada["model_cost"] > 0).all()
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 17"),
-                                     ({"mesh": object(), "algorithm": "dynappo"}, "item 17")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "DeviceMesh"),
+                                     ({"mesh": object(), "algorithm": "dynappo"}, "DeviceMesh")])
 def test_generic_sweep_unported_options_raise(aav_pair, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """`mesh=` is ported (ROADMAP item 17); a mesh that is not a DeviceMesh raises at once."""
+    with pytest.raises(TypeError, match=item):
         sweep.run_landscape_robustness_sweep(aav_pair, flexs.AAS, [aav_pair[0].wild_type], **kw,
                                              **SMALL)
 

@@ -63,7 +63,7 @@ def _engine(chunk_size=None, cell_mode="vmap", **kw):
     cfg = AdaleadConfig(rounds=2, sequences_batch_size=5, model_queries_per_batch=20,
                         alphabet_size=4)
     tables = tf_binding._device_tables(torch.device("cpu"))[1]
-    return sweep.sweep_adalead_nam(tables, *args, cfg, chunk_size=chunk_size, device="cpu",
+    return sweep.sweep_adalead_nam(tables, *args, cfg, None, chunk_size, device="cpu",
                                    cell_mode=cell_mode, **kw)
 
 
@@ -217,16 +217,17 @@ def test_checkpoint_resume(tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"mesh": object()}, "item 17"),
-        ({"mesh": object(), "algorithm": "dqn"}, "item 17"),
+        ({"mesh": object()}, "DeviceMesh"),
+        ({"mesh": object(), "algorithm": "dqn"}, "DeviceMesh"),
         ({"mesh": object(), "algorithm": "ppo", "algorithm_kwargs": {"train_epochs": 2}},
-         "item 17"),
+         "DeviceMesh"),
     ],
 )
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """`mesh=` is ported (ROADMAP item 17); a mesh that is not a DeviceMesh raises at once."""
+    with pytest.raises(TypeError, match=item):
         _sweep(**kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         sweep.run_efficiency_sweep(["SIX6_REF_R1"], tf_binding.STARTS[:1], device="cpu", **kw)
 
 
