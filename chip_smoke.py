@@ -5,9 +5,9 @@
 
 Phases (any failed check raises, and the script exits nonzero):
   1. build, from this checkout, the main path's CUDA duplex kernel
-     (flexs_tpu_torch/csrc/duplex_dp.cu) and the four row-cost builds of
-     the first kernel (csrc/duplex_rowcost.cu): five nvcc runs, all started
-     together in threads;
+     (flexs_tpu_torch/csrc/duplex_dp.cu), the eight row-cost knockouts of
+     it (csrc/duplex_rowcost.cu) and the first kernel (csrc/duplex_first.cu):
+     ten nvcc runs, all started together in threads;
   2. hold the kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes (B = 100, 512, 4096),
      maxloop 7 and a few edge cases, requiring bitwise
@@ -58,13 +58,17 @@ Phases (any failed check raises, and the script exits nonzero):
      e. a generic NAM sweep, L100_RNA1..2 x starts 1-5 x ss 0.9 x seed 0
         (10 cells, "vmap"): the duplex kernel must launch, no row-cost
         build may, and the first and last cells equal standalone runs;
-  7. row-cost knockouts: the path of `python -m
+  7. row-cost builds: the path of `python -m
      flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
-     measure` runs every build on the profiler's seeded inputs at B=4096
-     and B=100, requires baseline and unrolled (and the redesigned kernel,
-     timed beside them) to equal the plain version bitwise and const-rec
-     and carry-windows (wrong by design) to give finite f32[B], and times
-     each;
+     measure` runs every build (baseline, the main path's library; the
+     knockouts of duplex_dp_kernel<16>; first) on the profiler's seeded
+     inputs at B=4096 and B=100, requires the exact builds (baseline,
+     unrolled, chains-1, chains-8, clocked, first) to equal the plain
+     version bitwise and the others (wrong by design) to give finite
+     f32[B], times each (us per row and its difference from baseline) and
+     splits a row into four parts by the clocked build's stamps; printed
+     beside them: baseline's time against phase 2's kernel time, and at
+     B=100 the parts' sum against the clocked build's own us per row;
   8. the fold (RNAFolding; no kernel of this port, no duplex build may
      launch):
      a. `zuker_mfe_batch` on the card against the CPU on seeded rows (B=64
@@ -238,10 +242,6 @@ import numpy as np
 import torch
 
 SEED = 0
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
-# and float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # The main path's seeded runs: kernel launches and top true_score, as the
 # first kernel gave them; bitwise-equal energies must reproduce them.
 FUSED_LAUNCHES, FUSED_TOP = 439, 0.667402
@@ -453,24 +453,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def dp_operations(b: int, n_t: int, l1: int, l2: int, maxloop: int) -> int:
-    """f32 adds and mins the duplex DP does over B x T x L1 x L2 cells."""
-    interior = sum(
-        1 for r in range(1, maxloop + 1) for dj in range(2, maxloop + 2)
-        if r + dj - 1 <= maxloop and not (r == 1 and dj == 2)
-    )
-    bulges = (maxloop - 1) + (maxloop - 1)
-    per_cell = (
-        2 * 4  # open vs stack, two 1-bulges, 1x1 interior: add + min each
-        + 2 * interior + 2  # interior candidates, then + mB and min
-        + 2 * bulges + 2  # bulge candidates, then + AU and min
-        + 1  # unpairable mask
-        + 2  # + CLOSE and running best
-        + 2  # the two pushed window channels
-    )
-    return b * n_t * l1 * l2 * per_cell
-
-
 def timed_build(cuda_duplex, variant):
     """(seconds, library path, compiler log) of one variant's build."""
     t0 = time.perf_counter()
@@ -483,19 +465,6 @@ def print_build(variant, seconds, path, log):
     for line in log.splitlines():
         if "ptxas" in line:
             print(f"build {variant}: {line.strip()}")
-
-
-def bound_entry(n_bytes: int, dims) -> dict:
-    """The least time the card could take for one DP launch of `dims`.
-
-    The larger of moving `n_bytes` once at the memory rate and doing the
-    DP's operations at the f32 rate.
-    """
-    ops = dp_operations(*dims)
-    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
-    return {"bound_ms": bound[bound_by], "bound_by": bound_by, "n_bytes": n_bytes,
-            "operations": ops}
 
 
 def main_path_counts(cuda_duplex, path: str, expected: int) -> dict:
@@ -2591,6 +2560,73 @@ def profiling_on_card(flexs, cuda_duplex, profiling, rna, tmp: str, kernel_ms_b1
     return reading
 
 
+def rowcost_phase(cuda_duplex, rowcost, phase2_ms: float):
+    """Phase 7: `rowcost.measure` on its seeded inputs, every build launched.
+
+    Returns (readings, launch counts).  Prints each build's time, us per
+    row and difference from baseline, the clocked build's parts of a row,
+    baseline's time at B=100 against phase 2's kernel time `phase2_ms`,
+    and at B=100 the parts' sum against the clocked build's own us per row.
+    """
+    cuda_duplex.reset_launch_counts()
+    rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
+    torch.cuda.synchronize()
+    rc_counts = cuda_duplex.launch_counts()
+    silent = [v for v in cuda_duplex.ROWCOST_BUILDS if rc_counts[v] == 0]
+    assert not silent, f"the row-cost path never launched {silent}"
+    assert rc_counts[cuda_duplex.MAIN] == 0, rc_counts
+    print(f"row-cost phase, SM clock and power after: {clock_line()}")
+    for b, batch in rc.items():
+        for v, entry in batch["builds"].items():
+            print(f"row-cost {v} B={b}: {entry['ms']} ms, {entry['us_per_row']} us/row "
+                  f"({entry['us_per_row_vs_baseline']:+} vs baseline), plain "
+                  f"{batch['plain_ms']} ms, bound {entry['bound_ms']} ms ({entry['bound_by']}), "
+                  f"{'== plain' if v in cuda_duplex.EXACT_VARIANTS else 'timing only'}, "
+                  f"max |diff| vs plain {entry['max_abs_err']}")
+        c = batch["clocked"]
+        timed = batch["builds"]["clocked"]["us_per_row"]
+        print(f"row-cost clocked B={b}: median cycles {json.dumps(c['cycles'])}, row "
+              f"{c['row_cycles']}, SM clock {c['sm_clock_mhz']} MHz, parts "
+              f"{c['parts_us_per_row']} us/row vs {timed} timed "
+              f"(ratio {c['parts_us_per_row'] / timed})")
+    base = rc[rowcost.MAIN_PATH_BATCH]["builds"]["baseline"]["ms"]
+    print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} == plain (bitwise) at B={tuple(rc)}; "
+          f"baseline at B=100 {base} ms vs phase 2's {phase2_ms} ms (ratio {base / phase2_ms}); "
+          f"launches {rc_counts}")
+    return rc, rc_counts
+
+
+def rowcost_kernels(cuda_duplex, rowcost, rc, rc_counts, fused_counts) -> list:
+    """The kernels line's entries of the row-cost builds.
+
+    The profiler's B=4096 at the top level, B=100 beside it; `launches`
+    counts phase 7, `fused_launches` the fused run.
+    """
+    sources = {"baseline": "flexs_tpu_torch/csrc/duplex_dp.cu",
+               cuda_duplex.FIRST: "flexs_tpu_torch/csrc/duplex_first.cu"}
+    entries = []
+    for v in cuda_duplex.ROWCOST_BUILDS:
+        exact = v in cuda_duplex.EXACT_VARIANTS
+        entries.append({
+            "name": f"duplex_rowcost_{v.replace('-', '_')}",
+            "route": "cuda",
+            "source": sources.get(v, "flexs_tpu_torch/csrc/duplex_rowcost.cu"),
+            "replaces": "scripts/profile_duplex_rowcost.py:206",
+            "launches": rc_counts[v],
+            "fused_launches": fused_counts[v],
+            "knockout": v not in ("baseline", cuda_duplex.FIRST),
+            "tolerance": "bitwise" if exact else "finite only (wrong by design)",
+            **rc[rowcost.BATCH]["builds"][v],
+            "plain_ms": rc[rowcost.BATCH]["plain_ms"],
+            "library_ms": None,
+            "at_B100": {**rc[rowcost.MAIN_PATH_BATCH]["builds"][v],
+                        "plain_ms": rc[rowcost.MAIN_PATH_BATCH]["plain_ms"]},
+        })
+        if v == "clocked":
+            entries[-1]["clock_parts"] = {b: batch["clocked"] for b, batch in rc.items()}
+    return entries
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
@@ -2627,8 +2663,9 @@ def main() -> int:
     start = problem["starts"][1]
 
     stamps = [("1 build", time.perf_counter())]
-    # 1. Build every library at once, one nvcc each.
-    builds = (cuda_duplex.MAIN,) + cuda_duplex.VARIANTS
+    # 1. Build every library at once, one nvcc each ("baseline" is MAIN's).
+    builds = (cuda_duplex.MAIN,) + tuple(
+        v for v in cuda_duplex.ROWCOST_BUILDS if v != "baseline")
     build_pool = ThreadPoolExecutor(max_workers=len(builds))
     pending = {v: build_pool.submit(timed_build, cuda_duplex, v) for v in builds}
     for v in builds:
@@ -2688,19 +2725,20 @@ def main() -> int:
     cases.append("C20_L100_RNA1+2 landscape, card vs CPU")
     print(f"kernel == plain (bitwise) on: {'; '.join(cases)}")
 
-    # Timing: the kernel alone on the landscape's plan, the wrapper the main
-    # path calls (checks, output, launch), and the plain version.
+    # Timing: the kernel alone on the landscape's plan (a bound launcher,
+    # checked once), the wrapper the main path calls (checks, output,
+    # launch), and the plain version.
     reps, inner = rowcost.TIMING_REPS, rowcost.TIMING_INNER
     timings = {}
     for b in (100, 512, 4096):
         tokens = random_tokens(b, 100)
         entry = {
-            "ms": time_ms(lambda: cuda_duplex.launch_plan(plan, tokens), reps, inner),
+            "ms": time_ms(cuda_duplex.launcher(plan, tokens)[1], reps, inner),
             "sm_clock_power_after": clock_line(),
             "plain_ms": time_ms(
                 lambda: cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop),
                 reps, 1),
-            **bound_entry(rowcost.plan_bytes(plan, tokens), (b, 1, 100, 100, maxloop)),
+            **rowcost.bound_entry(rowcost.plan_bytes(plan, tokens), (b, 1, 100, 100, maxloop)),
         }
         if b in (100, 512):
             entry["wrapper_ms"] = time_ms(
@@ -2712,7 +2750,7 @@ def main() -> int:
               f"{entry['sm_clock_power_after']}), wrapper {entry.get('wrapper_ms')} ms, "
               f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
               f"({entry['bound_by']}; {entry['n_bytes']} bytes, "
-              f"{entry['operations']} operations)")
+              f"{entry['adds']} adds, {entry['mins']} mins)")
 
     stamps.append(("3 fused", time.perf_counter()))
     # 3. Fused main path at full width.
@@ -2773,29 +2811,8 @@ def main() -> int:
 
     stamps.append(("7 row-cost", time.perf_counter()))
     # 7. Row-cost builds: the profiler's run, check and timing of every
-    # build on its seeded inputs, with the redesigned kernel beside them.
-    cuda_duplex.reset_launch_counts()
-    rc = rowcost.measure(*rowcost.seeded_inputs("cuda"))
-    torch.cuda.synchronize()
-    rc_counts = cuda_duplex.launch_counts()
-    silent = [v for v, n in rc_counts.items() if n == 0]
-    assert not silent, f"the row-cost path never launched {silent}"
-    print(f"row-cost phase, SM clock and power after: {clock_line()}")
-    rc_entries = {v: {} for v in cuda_duplex.VARIANTS}
-    for b, batch in rc.items():
-        bound = bound_entry(batch["n_bytes"], batch["dims"])
-        for v, reading in batch["variants"].items():
-            entry = {**reading, "plain_ms": batch["plain_ms"], **bound}
-            rc_entries[v][b] = entry
-            print(f"row-cost {v} B={b}: {entry['ms']} ms, {entry['us_per_row']} us/row, "
-                  f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms "
-                  f"({entry['bound_by']}), equal to baseline {entry['equal_to_baseline']}, "
-                  f"max |diff| vs plain {entry['max_abs_err']}")
-        r = batch["redesign"]
-        print(f"row-cost phase duplex_dp B={b}: {r['ms']} ms, {r['us_per_row']} us/row, "
-              f"max |diff| vs plain {r['max_abs_err']}")
-    print(f"row-cost: {list(cuda_duplex.EXACT_VARIANTS)} and duplex_dp == plain (bitwise) at "
-          f"B={tuple(rc)}; launches {rc_counts}")
+    # build on its seeded inputs.
+    rc, rc_counts = rowcost_phase(cuda_duplex, rowcost, timings[100]["ms"])
 
     stamps.append(("8 fold", time.perf_counter()))
     # 8. The fold DP and RNAFolding: no kernel of this port on its path.
@@ -2866,26 +2883,8 @@ def main() -> int:
         "library_ms": None,
         "at_B512": timings[512],
         "at_B4096": timings[4096],
-        "rowcost_phase": {b: batch["redesign"] for b, batch in rc.items()},
     }]
-    # The row-cost builds: the profiler's B=4096 at the top level, B=100
-    # beside it; `launches` counts the row-cost phase, `fused_launches` the
-    # fused run.
-    for v in cuda_duplex.VARIANTS:
-        exact = v in cuda_duplex.EXACT_VARIANTS
-        kernels.append({
-            "name": f"duplex_rowcost_{v.replace('-', '_')}",
-            "route": "cuda",
-            "source": "flexs_tpu_torch/csrc/duplex_rowcost.cu",
-            "replaces": "scripts/profile_duplex_rowcost.py:206",
-            "launches": rc_counts[v],
-            "fused_launches": fused_counts[v],
-            "knockout": v != "baseline",
-            "tolerance": "bitwise" if exact else "finite only (wrong by design)",
-            **rc_entries[v][rowcost.BATCH],
-            "library_ms": None,
-            "at_B100": rc_entries[v][rowcost.MAIN_PATH_BATCH],
-        })
+    kernels += rowcost_kernels(cuda_duplex, rowcost, rc, rc_counts, fused_counts)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

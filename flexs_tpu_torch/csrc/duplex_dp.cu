@@ -4,7 +4,7 @@
 // _duplex_kernel -> _duplex_group_body).  For B sequences x T reversed
 // targets in one launch it computes the recursion of the plain version
 // flexs_tpu_torch/ops/rna_duplex.py::_duplex_dp_slabs, bit for bit.  It is
-// the redesign of the first CUDA kernel, which csrc/duplex_rowcost.cu keeps
+// the redesign of the first CUDA kernel, which csrc/duplex_first.cu keeps
 // unchanged as the yardstick.
 //
 // Mapping.  One block per (sequence b, target t), one thread per target
@@ -56,7 +56,8 @@
 // close behind (about 630 instructions and 157 shared loads per warp and
 // row); at B <= 132 a fixed ~0.7 us per row, whatever the target width.
 // Fewer of both per cell needs several columns per thread (register
-// blocking), left for later.
+// blocking), left for later.  The row-cost knockouts of this kernel
+// (csrc/duplex_rowcost.cu, through the hooks below) attribute that row.
 //
 // Exactness.  Every value is an f32 add or min of table entries, in the
 // plain version's association: interior candidates are
@@ -84,6 +85,69 @@ constexpr unsigned kFull = 0xffffffffu;
 // Channel order of t_past (rna_duplex._PAST) and t_fut (rna_duplex._FUT).
 enum { P_OPEN = 0, P_STACK, P_B1S, P_B1T, P_I11, P_MB, P_AU };
 enum { F_MA = 0, F_CLOSE };
+
+// Row-cost hooks.  csrc/duplex_rowcost.cu defines some of them before it
+// includes this file, to build one knockout of duplex_dp_kernel<16> for
+// flexs_tpu_torch/profile_duplex_rowcost.py.  Each expands by default to
+// the kernel's own tokens (the empty ones to nothing), so this file's own
+// build, the main path's, preprocesses to the same tokens as without them
+// (tests/test_torch_rowcost.py pins its digest).  What each is for:
+#ifndef DUPLEX_L1  // the number of DP rows (a compile-time 100 in `unrolled`)
+#define DUPLEX_L1 a.l1
+#endif
+#ifndef DUPLEX_ROW_LOOP  // the row loop's pragma (unrolled by 2 in `unrolled`)
+#define DUPLEX_ROW_LOOP _Pragma("unroll 1")
+#endif
+#ifndef DUPLEX_NEXT_ROW  // row i's records (row 0's for every row in `const-rec`)
+#define DUPLEX_NEXT_ROW(i) load_row(i)
+#endif
+#ifndef DUPLEX_ROW_SETUP  // before the row loop: `carry-windows`' registers, `clocked`'s stamps
+#define DUPLEX_ROW_SETUP
+#endif
+#ifndef DUPLEX_STAMP  // `clocked`: clock64() at point k of row i (0 start, 1 interior, 2 bulges, 3 barrier)
+#define DUPLEX_STAMP(i, k)
+#endif
+// The window reads, from the rings at pointer p (from warp shuffles in
+// `carry-windows`): c of row i-1-r at column j-k; c + mA of row i-1-r at
+// j-dj; c + AU of row i-3-s at j-1 and of row i-1 at j-3-s.
+#ifndef DUPLEX_WIN_C
+#define DUPLEX_WIN_C(p, r, k) p[-k]
+#endif
+#ifndef DUPLEX_WIN_CA
+#define DUPLEX_WIN_CA(p, r, dj) p[-(dj * pitch + r)]
+#endif
+#ifndef DUPLEX_WIN_BS
+#define DUPLEX_WIN_BS(p, s) p[-s]
+#endif
+#ifndef DUPLEX_WIN_BT
+#define DUPLEX_WIN_BT(p, s) p[-(3 + s) * pitch]
+#endif
+#ifndef DUPLEX_ADDMIN  // one candidate: min(x, v + e) (one DPX instruction in `dpx`)
+#define DUPLEX_ADDMIN(x, v, e) fminf(x, v + e)
+#endif
+// The partial interior minima: their declaration, the chain of candidate
+// m, and their combination (1 or 8 chains in `chains-1`, `chains-8`).
+#ifndef DUPLEX_CHAIN_DECL
+#define DUPLEX_CHAIN_DECL(lm) float lm[4] = {INFINITY, INFINITY, INFINITY, INFINITY}
+#endif
+#ifndef DUPLEX_CHAIN
+#define DUPLEX_CHAIN(m) m & 3
+#endif
+#ifndef DUPLEX_CHAIN_MIN
+#define DUPLEX_CHAIN_MIN(lm) fminf(fminf(lm[0], lm[1]), fminf(lm[2], lm[3]))
+#endif
+#ifndef DUPLEX_PUSH  // after row i: `carry-windows` shifts its registers
+#define DUPLEX_PUSH(acc, row)
+#endif
+#ifndef DUPLEX_RING_STORES  // whether a thread stores row i in the rings (never in `carry-windows`)
+#define DUPLEX_RING_STORES(active) active
+#endif
+#ifndef DUPLEX_ROW_BARRIER  // the per-row barrier (none in `no-barrier`, `carry-windows`)
+#define DUPLEX_ROW_BARRIER() __syncthreads()
+#endif
+#ifndef DUPLEX_RESULT  // a block's energy before the store (`dpx` maps a non-finite one to 0)
+#define DUPLEX_RESULT(m) m
+#endif
 
 // The size costs of a window of M, in the order the plan's host copy holds
 // them: interior_cost [d, d], bulge_seq [d - 1], bulge_tgt [d], d = M + 2.
@@ -143,7 +207,7 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
   const int maxloop = kStatic ? M : a.maxloop;
   const int d = maxloop + 2;
   const int pitch = 2 * d + 1;  // column pitch of the compile-time window's rings
-  const int l1 = a.l1, l2 = a.l2, ncol = a.ncol;
+  const int l1 = DUPLEX_L1, l2 = a.l2, ncol = a.ncol;
   extern __shared__ float smem[];
   // Compile-time window: ca, cw column-major [ncol][pitch], c [4][ncol].
   // Runtime window: c, ca, cw [d][ncol] each, then the size costs.
@@ -222,17 +286,19 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
   float best = kInf;
   int slot0 = d - 1;  // ring row of DP row i - 1 (rows before 0 hold the sentinel)
   RowE cur = load_row(0);
-#pragma unroll 1
+  DUPLEX_ROW_SETUP
+  DUPLEX_ROW_LOOP
   for (int i = 0; i < l1; ++i) {
+    DUPLEX_STAMP(i, 0)
     RowE nxt = cur;
-    if (i + 1 < l1) nxt = load_row(i + 1);
+    if (i + 1 < l1) nxt = DUPLEX_NEXT_ROW(i + 1);
     const int slot1 = slot0 == 0 ? d - 1 : slot0 - 1;
     const float* c0 = win_c + (kStatic ? ((i - 1) & 3) : slot0) * ncol + col;
     const float* c1 = win_c + (kStatic ? ((i - 2) & 3) : slot1) * ncol + col;
-    float acc = fminf(cur.open, c0[-1] + cur.stack);
-    acc = fminf(acc, c1[-1] + cur.b1s);
-    acc = fminf(acc, c0[-2] + cur.b1t);
-    acc = fminf(acc, c1[-2] + cur.i11);
+    float acc = DUPLEX_ADDMIN(cur.open, DUPLEX_WIN_C(c0, 0, 1), cur.stack);
+    acc = DUPLEX_ADDMIN(acc, DUPLEX_WIN_C(c1, 1, 1), cur.b1s);
+    acc = DUPLEX_ADDMIN(acc, DUPLEX_WIN_C(c0, 0, 2), cur.b1t);
+    acc = DUPLEX_ADDMIN(acc, DUPLEX_WIN_C(c1, 1, 2), cur.i11);
 
     float loop_min, bulge_min;
     if constexpr (kStatic) {
@@ -240,17 +306,19 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
       const int top = slot0 + d;
       // Interior loops: window row r shifted by dj, in four partial minima.
       const float* wq = win_ca + col * pitch + top;
-      float lm[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+      DUPLEX_CHAIN_DECL(lm);
       int m = 0;
 #pragma unroll
       for (int r = 1; r <= M; ++r) {
 #pragma unroll
         for (int dj = dj_lo(r); dj <= M + 1 - r; ++dj, ++m) {
           const float cost = costs.icost[(r + 1) * (M + 2) + dj];
-          lm[m & 3] = fminf(lm[m & 3], wq[-(dj * pitch + r)] + cost);
+          lm[DUPLEX_CHAIN(m)] =
+              DUPLEX_ADDMIN(lm[DUPLEX_CHAIN(m)], DUPLEX_WIN_CA(wq, r, dj), cost);
         }
       }
-      loop_min = fminf(fminf(lm[0], lm[1]), fminf(lm[2], lm[3]));
+      loop_min = DUPLEX_CHAIN_MIN(lm);
+      DUPLEX_STAMP(i, 1)
 
       // Bulges of >= 2 unpaired bases: on the sequence side window row
       // r = 2 + s at shift 1, on the target side row i-1 at shift dj = 3 + s.
@@ -259,10 +327,11 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
       float bs = INFINITY, bg = INFINITY;
 #pragma unroll
       for (int s = 0; s < M - 1; ++s) {
-        bs = fminf(bs, ws[-s] + costs.bseq[2 + s]);
-        bg = fminf(bg, wt[-(3 + s) * pitch] + costs.btgt[3 + s]);
+        bs = DUPLEX_ADDMIN(bs, DUPLEX_WIN_BS(ws, s), costs.bseq[2 + s]);
+        bg = DUPLEX_ADDMIN(bg, DUPLEX_WIN_BT(wt, s), costs.btgt[3 + s]);
       }
       bulge_min = fminf(bs, bg);
+      DUPLEX_STAMP(i, 2)
     } else {
       loop_min = INFINITY;
       int slot = slot1;
@@ -286,15 +355,16 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
       }
     }
 
-    acc = fminf(acc, loop_min + cur.mb);
-    acc = fminf(acc, bulge_min + cur.au);
+    acc = DUPLEX_ADDMIN(acc, loop_min, cur.mb);
+    acc = DUPLEX_ADDMIN(acc, bulge_min, cur.au);
 
     // Unpairable cells admit no path at all.
     if (cur.open >= kInf / 2) acc = kInf;
     if (active) best = fminf(best, acc + cur.close);
 
     const int wslot = slot0 + 1 == d ? 0 : slot0 + 1;  // the ring row of row i - d
-    if (active) {
+    DUPLEX_PUSH(acc, cur)
+    if (DUPLEX_RING_STORES(active)) {
       const float ca = acc + cur.ma, cw = acc + cur.au;
       if constexpr (kStatic) {
         win_c[(i & 3) * ncol + col] = acc;
@@ -313,7 +383,8 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
     }
     slot0 = wslot;
     cur = nxt;
-    __syncthreads();
+    DUPLEX_ROW_BARRIER();
+    DUPLEX_STAMP(i, 3)
   }
 
   for (int off = 16; off > 0; off >>= 1) {
@@ -325,7 +396,7 @@ duplex_dp_kernel(const __grid_constant__ Args a, const __grid_constant__ Costs<M
     float m = warp_min[0];
     for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fminf(m, warp_min[w]);
     // No pairable positions at all => energy 0 (no duplex forms).
-    a.out[bt] = any_bad ? NAN : (m >= kInf / 2 ? 0.0f : m);
+    a.out[bt] = any_bad ? NAN : (m >= kInf / 2 ? 0.0f : DUPLEX_RESULT(m));
   }
 }
 

@@ -16,10 +16,12 @@ The kernel is compiled with nvcc for sm_90a on first use, from the source
 in this package, into `flexs_tpu_torch/_build/` (tagged by the hash of the
 source and flags), and bound with ctypes.  Nothing is built on import.
 
-The first kernel and its row-cost knockouts live in
-csrc/duplex_rowcost.cu: the builds of `VARIANTS` (see the source's
-DUPLEX_VARIANT), each its own library, driven by `prepare` and `launch`
-for `flexs_tpu_torch.profile_duplex_rowcost`.  No main path loads them.
+The row-cost builds that `flexs_tpu_torch.profile_duplex_rowcost` times
+are `ROWCOST_BUILDS`: `baseline`, which is MAIN's library itself; the
+knockouts of the main kernel in csrc/duplex_rowcost.cu (one library each,
+launched on a plan by `launch_variant`); and `first`, the first CUDA kernel
+in csrc/duplex_first.cu (driven by `prepare` and `launch`).  No main path
+launches any of them, and each has its own launch count.
 """
 import ctypes
 import hashlib
@@ -37,7 +39,8 @@ from flexs_tpu_torch.ops import rna_duplex as rd
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_dp.cu")
-ROWCOST_SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_rowcost.cu")
+ROWCOST_SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_rowcost.cu")  # includes SOURCE
+FIRST_SOURCE = os.path.join(_PKG_DIR, "csrc", "duplex_first.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,17 +49,23 @@ NVCC_FLAGS = [
 _MAX_L2 = 1024  # one thread per target column
 MAIN = "duplex_dp"  # the main path's build, of SOURCE
 
-# Row-cost knockout builds of ROWCOST_SOURCE, in the order of
-# scripts/profile_duplex_rowcost.py, and their DUPLEX_VARIANT numbers.
-# "unrolled" and "carry-windows" are compiled for one shape, the
-# profiler's L1 and maxloop.
+# The row-cost builds.  VARIANTS are scripts/profile_duplex_rowcost.py's
+# names, in its order, each given its meaning on duplex_dp_kernel<16>;
+# HOPPER_VARIANTS are the knockouts added for this card; FIRST is the
+# first CUDA kernel.  _KNOCKOUT_ID is ROWCOST_SOURCE's DUPLEX_KNOCKOUT of
+# each knockout; "baseline" is MAIN's library.
 VARIANTS = ("baseline", "const-rec", "carry-windows", "unrolled")
-_VARIANT_ID = {"baseline": 0, "const-rec": 1, "unrolled": 2, "carry-windows": 3}
+HOPPER_VARIANTS = ("no-barrier", "chains-1", "chains-8", "dpx", "clocked")
+FIRST = "first"
+ROWCOST_BUILDS = VARIANTS + HOPPER_VARIANTS + (FIRST,)
+_KNOCKOUT_ID = {"const-rec": 1, "unrolled": 2, "carry-windows": 3, "no-barrier": 4,
+                "chains-1": 5, "chains-8": 6, "dpx": 7, "clocked": 8}
 # The builds that compute the DP itself, bit for bit; the others are wrong
 # by design and serve for timing only.
-EXACT_VARIANTS = ("baseline", "unrolled")
-STATIC_L1, STATIC_MAXLOOP = 100, 16
-_STATIC_SHAPE = ("unrolled", "carry-windows")
+EXACT_VARIANTS = ("baseline", "unrolled", "chains-1", "chains-8", "clocked", FIRST)
+# Every knockout is of the compile-time window (maxloop 16, L2 <= 512
+# threads); "unrolled" is compiled for the profiler's L1 as well.
+STATIC_L1, STATIC_MAXLOOP, STATIC_MAX_L2 = 100, 16, 512
 
 _libs = {}
 _lib_lock = threading.Lock()
@@ -71,62 +80,74 @@ def _nvcc() -> str:
     return path
 
 
-def _variant_id(variant: str) -> int:
-    if variant not in _VARIANT_ID:
-        raise ValueError(f"unknown duplex kernel variant {variant!r}; one of {VARIANTS}")
-    return _VARIANT_ID[variant]
+def _library(variant: str) -> str:
+    """The library a build runs in: MAIN for MAIN and "baseline", else its own."""
+    if variant == MAIN or variant == "baseline":
+        return MAIN
+    if variant not in ROWCOST_BUILDS:
+        raise ValueError(f"unknown duplex kernel variant {variant!r}; one of {ROWCOST_BUILDS}")
+    return variant
 
 
 def check_variant(variant: str, l1: int, maxloop: int) -> None:
     """Raise ValueError for an unknown variant, or a shape its build cannot take."""
-    _variant_id(variant)
-    if variant in _STATIC_SHAPE and (l1, maxloop) != (STATIC_L1, STATIC_MAXLOOP):
+    _library(variant)
+    if variant not in _KNOCKOUT_ID:
+        return
+    if variant == "unrolled" and (l1, maxloop) != (STATIC_L1, STATIC_MAXLOOP):
         raise ValueError(
             f"the {variant!r} build is compiled for L1={STATIC_L1}, "
             f"maxloop={STATIC_MAXLOOP}; got L1={l1}, maxloop={maxloop}"
         )
+    if maxloop != STATIC_MAXLOOP:
+        raise ValueError(f"the {variant!r} build is a knockout of duplex_dp_kernel<16> and "
+                         f"takes maxloop={STATIC_MAXLOOP} only; got {maxloop}")
 
 
 def nvcc_flags(variant: str = MAIN) -> list:
-    """nvcc flags of a build: NVCC_FLAGS plus a row-cost variant's defines."""
-    if variant == MAIN:
+    """nvcc flags of a build: NVCC_FLAGS plus a knockout's defines."""
+    if variant not in _KNOCKOUT_ID:
+        _library(variant)
         return list(NVCC_FLAGS)
-    number = _variant_id(variant)
-    if number == 0:
-        return list(NVCC_FLAGS)
-    defines = [f"-DDUPLEX_VARIANT={number}"]
-    if variant in _STATIC_SHAPE:
-        defines += [f"-DDUPLEX_L1={STATIC_L1}", f"-DDUPLEX_MAXLOOP={STATIC_MAXLOOP}"]
+    defines = [f"-DDUPLEX_KNOCKOUT={_KNOCKOUT_ID[variant]}"]
+    if variant == "unrolled":
+        defines.append(f"-DDUPLEX_STATIC_L1={STATIC_L1}")
     return NVCC_FLAGS + defines
 
 
-def _source(variant: str) -> str:
-    return SOURCE if variant == MAIN else ROWCOST_SOURCE
+def _sources(variant: str) -> list:
+    """The files a build compiles, the one given to nvcc first."""
+    library = _library(variant)
+    if library == MAIN:
+        return [SOURCE]
+    return [FIRST_SOURCE] if library == FIRST else [ROWCOST_SOURCE, SOURCE]
 
 
 def library_path(variant: str = MAIN) -> str:
-    """Where a build's library goes: tagged by its source and flags."""
-    flags = nvcc_flags(variant)
-    with open(_source(variant), "rb") as f:
-        src = f.read()
+    """Where a build's library goes: tagged by its sources and flags."""
+    library = _library(variant)
+    flags = nvcc_flags(library)
+    src = b"".join(open(path, "rb").read() for path in _sources(library))
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    name = MAIN if variant == MAIN else f"duplex_rowcost_{variant.replace('-', '_')}"
+    name = MAIN if library == MAIN else f"duplex_rowcost_{library.replace('-', '_')}"
     return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
 def build(variant: str = MAIN) -> Tuple[str, str]:
     """Compile a build's kernel library if needed; return (path, compiler log).
 
-    `variant` is MAIN (the main path's kernel) or one of VARIANTS.
+    `variant` is MAIN (the main path's kernel) or one of ROWCOST_BUILDS
+    ("baseline" builds MAIN).
     """
     lib_path = library_path(variant)
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    source = _source(variant)
+    source = _sources(variant)[0]
     proc = subprocess.run(
-        [_nvcc(), *nvcc_flags(variant), "-o", tmp, source], capture_output=True, text=True
+        [_nvcc(), *nvcc_flags(_library(variant)), "-o", tmp, source],
+        capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
@@ -135,14 +156,31 @@ def build(variant: str = MAIN) -> Tuple[str, str]:
 
 
 def _load(variant: str = MAIN):
+    """A build's library, loaded once; its launch entry is `lib.launch`."""
+    library = _library(variant)
     with _lib_lock:
-        if variant not in _libs:
-            lib = ctypes.CDLL(build(variant)[0])
-            fn = lib.duplex_dp_launch
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _libs[variant] = lib
-    return _libs[variant]
+        if library not in _libs:
+            lib = ctypes.CDLL(build(library)[0])
+            if library == FIRST:
+                lib.launch = lib.duplex_first_launch
+                lib.launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                                       + [ctypes.c_void_p])
+            else:
+                knockout = library in _KNOCKOUT_ID
+                if knockout:
+                    lib.duplex_rowcost_knockout.argtypes = []
+                    lib.duplex_rowcost_knockout.restype = ctypes.c_int
+                    if lib.duplex_rowcost_knockout() != _KNOCKOUT_ID[library]:
+                        raise RuntimeError(f"{lib._name} is not the {library!r} build")
+                if library == "clocked":
+                    lib.duplex_rowcost_set_stamps.argtypes = [ctypes.c_void_p] * 2
+                    lib.duplex_rowcost_set_stamps.restype = ctypes.c_int
+                lib.launch = lib.duplex_rowcost_launch if knockout else lib.duplex_dp_launch
+                lib.launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
+            lib.launch.restype = ctypes.c_int
+            _libs[library] = lib
+    return _libs[library]
 
 
 def _check_maxloop(maxloop: int) -> None:
@@ -365,8 +403,8 @@ def duplex_energies(tokens, targets_rev, em, maxloop: int, plan: DuplexPlan = No
 
 
 launches = 0  # launches of the main path's kernel; `launch_plan` adds one each
-# Launches of each row-cost build of ROWCOST_SOURCE, counted by `launch`.
-rowcost_launches = dict.fromkeys(VARIANTS, 0)
+# Launches of each row-cost build, counted by `launch_variant` and `launch`.
+rowcost_launches = dict.fromkeys(ROWCOST_BUILDS, 0)
 
 
 def reset_launch_counts() -> None:
@@ -378,17 +416,17 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches of each build since the last reset: MAIN, then each row-cost variant."""
+    """Launches of each build since the last reset: MAIN, then each row-cost build."""
     return {MAIN: launches, **rowcost_launches}
 
 
-def launch_plan(plan: DuplexPlan, tokens):
-    """Launch the kernel on CUDA int[B, L1] tokens; returns f32[B, T].
+def _bind(load, name: str, plan: DuplexPlan, tokens):
+    """Check CUDA int[B, L1] tokens against `plan` and allocate f32[B, T].
 
-    Checks without a host sync, allocates the output and launches once on
-    the current stream.
+    Returns (out, enqueue): `enqueue()` launches the entry of the library
+    `load()` returns on the current stream, into `out`, and raises if the
+    launch failed; it is None for B = 0.
     """
-    global launches
     dev = plan.device
     if tokens.device != dev:
         raise ValueError(f"tokens are on {tokens.device}, the plan on {dev}")
@@ -402,26 +440,133 @@ def launch_plan(plan: DuplexPlan, tokens):
         raise ValueError(f"unsupported shapes: tokens {tuple(tokens.shape)}")
     out = torch.empty((b, plan.n_targets), dtype=torch.float32, device=dev)
     if b == 0:
-        return out
-    lib = _load(MAIN)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.duplex_dp_launch(
-            tokens.data_ptr(), *plan.pointers(), out.data_ptr(),
-            int(tokens.dtype == torch.int64), b, plan.n_targets, l1, plan.l2,
-            plan.maxloop, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"duplex_dp kernel launch failed with CUDA error {err}")
-    launches += 1
+        return out, None
+    lib = load()
+    dims = (int(tokens.dtype == torch.int64), b, plan.n_targets, l1, plan.l2, plan.maxloop)
+
+    def enqueue():  # holds `tokens` (maybe a copy) and `out` as long as it lives
+        with torch.cuda.device(dev):
+            err = lib.launch(tokens.data_ptr(), *plan.pointers(), out.data_ptr(), *dims,
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+    return out, enqueue
+
+
+def launcher(plan: DuplexPlan, tokens, variant: str = MAIN, stamps=None):
+    """(out, launch): checks and allocation done once, launches left to `launch`.
+
+    Each `launch()` launches one build on CUDA int[B, L1] tokens into
+    f32[B, T] `out` on the current stream and adds one to that build's
+    count; for B = 0 it does nothing.  MAIN is the main path's kernel (as
+    `launch_plan`), and a row-cost build of the plan's kernel is checked as
+    `launch_variant` says.  For timing a kernel that takes less time than a
+    wrapper call's host work.
+    """
+    if variant != MAIN:
+        _check_variant_call(plan, tokens, variant, stamps)
+
+    def load():
+        lib = _load(variant)
+        if stamps is not None:
+            _point_stamps(lib, stamps)
+        return lib
+
+    name = "duplex_dp" if variant == MAIN else f"duplex_rowcost ({variant})"
+    out, enqueue = _bind(load, name, plan, tokens)
+
+    def launch():
+        global launches
+        if enqueue is None:
+            return
+        enqueue()
+        if variant == MAIN:
+            launches += 1
+        else:
+            rowcost_launches[variant] += 1
+
+    return out, launch
+
+
+def launch_plan(plan: DuplexPlan, tokens):
+    """Launch the kernel on CUDA int[B, L1] tokens; returns f32[B, T].
+
+    Checks without a host sync, allocates the output and launches once on
+    the current stream.
+    """
+    out, launch = launcher(plan, tokens)
+    launch()
     return out
 
 
-# --- The row-cost builds of ROWCOST_SOURCE (profiling only) ----------------
+# --- The row-cost builds (profiling only) ---------------------------------
+
+
+def clock_buffers(l1: int, l2: int, device):
+    """Zeroed (stamps int64[2, warps, L1, 4], timer int64[2, 2]) for `clocked`.
+
+    stamps[blk, w, i, k] is clock64() of lane 0 of warp w of the first (blk
+    0) or the last block (blk 1) at point k of DP row i: 0 the row's start,
+    1 after the direct and interior candidates, 2 after the bulges, 3 after
+    the barrier.  timer holds (clock64, globaltimer ns) of block 0's warp 0
+    before the first row and after the last.
+    """
+    warps = (l2 + 31) // 32
+    return (torch.zeros((2, warps, l1, 4), dtype=torch.int64, device=device),
+            torch.zeros((2, 2), dtype=torch.int64, device=device))
+
+
+_stamp_buffers = None  # what the clocked library's stamps point at (kept alive)
+
+
+def _point_stamps(lib, buffers) -> None:
+    global _stamp_buffers
+    if _stamp_buffers is not None and all(
+            x is y for x, y in zip(buffers, _stamp_buffers)):
+        return
+    err = lib.duplex_rowcost_set_stamps(buffers[0].data_ptr(), buffers[1].data_ptr())
+    if err != 0:
+        raise RuntimeError(f"setting the clocked build's stamps failed with CUDA error {err}")
+    _stamp_buffers = buffers
+
+
+def _check_variant_call(plan: DuplexPlan, tokens, variant: str, stamps) -> None:
+    check_variant(variant, tokens.shape[-1], plan.maxloop)
+    if variant not in ROWCOST_BUILDS or variant == FIRST:
+        raise ValueError(f"{variant!r} does not run as a row-cost build on a plan "
+                         "(the first kernel runs through prepare and launch)")
+    if variant in _KNOCKOUT_ID and not 1 <= plan.l2 <= STATIC_MAX_L2:
+        raise ValueError(f"the {variant!r} build takes L2 <= {STATIC_MAX_L2}; got {plan.l2}")
+    if (stamps is not None) != (variant == "clocked"):
+        raise ValueError("the clocked build, and only it, takes stamps")
+    if stamps is not None:
+        want = (2, (plan.l2 + 31) // 32, tokens.shape[-1], 4)
+        if tuple(stamps[0].shape) != want or tuple(stamps[1].shape) != (2, 2) or any(
+                x.dtype != torch.int64 or x.device != plan.device or not x.is_contiguous()
+                for x in stamps):
+            raise ValueError(f"stamps must be clock_buffers({want[2]}, {plan.l2}) on "
+                             f"{plan.device}")
+
+
+def launch_variant(plan: DuplexPlan, tokens, variant: str, stamps=None):
+    """Launch a row-cost build of the main kernel on `plan`; returns f32[B, T].
+
+    `variant` is "baseline" (MAIN's library, counted apart from the main
+    path) or a knockout.  "clocked" needs `stamps`, from `clock_buffers`
+    at these tokens' L1 and the plan's L2; no other build takes them.  An
+    unknown variant, or a shape its build cannot take, raise ValueError
+    before anything is built or launched.
+    """
+    if variant == MAIN:
+        raise ValueError(f"{MAIN!r} is the main path's kernel: use launch_plan")
+    out, launch = launcher(plan, tokens, variant, stamps)
+    launch()
+    return out
 
 
 def prepare(tokens, targets_rev, em, maxloop: int):
-    """Check CUDA inputs and build a row-cost build's arguments: (args, dims).
+    """Check CUDA inputs and build the first kernel's arguments: (args, dims).
 
     args: the 13 input tensors and the f32[B, T] output, contiguous, in the
     C entry's order; dims: (B, T, L1, L2, maxloop).
@@ -468,25 +613,20 @@ def prepare(tokens, targets_rev, em, maxloop: int):
     return args, (b, n_t, l1, l2, maxloop)
 
 
-def launch(args, dims, variant: str = "baseline"):
-    """Launch a row-cost build on the current stream; returns the output tensor.
+def launch(args, dims):
+    """Launch the first kernel (build FIRST) on the current stream; returns the output.
 
-    `args, dims` come from `prepare`.  An unknown variant, or dims that a
-    compile-time build does not take, raise ValueError before anything is
-    built or launched.
+    `args, dims` come from `prepare`.
     """
-    check_variant(variant, dims[2], dims[4])
     out = args[-1]
     if dims[0] == 0:
         return out
-    lib = _load(variant)
+    lib = _load(FIRST)
     dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.duplex_dp_launch(
-            *[a.data_ptr() for a in args], *dims, _VARIANT_ID[variant], stream
-        )
+        err = lib.launch(*[a.data_ptr() for a in args], *dims, stream)
     if err != 0:
-        raise RuntimeError(f"duplex_rowcost ({variant}) kernel launch failed with CUDA error {err}")
-    rowcost_launches[variant] += 1
+        raise RuntimeError(f"duplex_rowcost (first) kernel launch failed with CUDA error {err}")
+    rowcost_launches[FIRST] += 1
     return out

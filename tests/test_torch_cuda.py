@@ -114,24 +114,51 @@ def test_rowcost_baseline_equals_plain(card, b, l1, l2):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-def test_rowcost_unrolled_equals_plain(card):
+@pytest.mark.parametrize("b", [100, 4096])
+@pytest.mark.parametrize("variant", cuda_duplex.EXACT_VARIANTS)
+def test_rowcost_exact_build_equals_plain(card, variant, b):
     tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
-    tokens = tokens[:128]
-    got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, "unrolled")
+    tokens = tokens[:b]
+    before = cuda_duplex.rowcost_launches[variant]
+    got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, variant)
+    assert cuda_duplex.rowcost_launches[variant] == before + 1
     want = cuda_duplex.duplex_energies_plain(tokens, target_rev[None], em, maxloop)[:, 0]
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("variant", ["const-rec", "carry-windows", "unrolled"])
+@pytest.mark.parametrize(
+    "variant", [v for v in cuda_duplex.ROWCOST_BUILDS if v not in cuda_duplex.EXACT_VARIANTS])
 def test_rowcost_knockout_returns_finite_energies(card, variant):
     tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
     tokens = tokens[:128]
-    before = cuda_duplex.rowcost_launches[variant]
+    before = cuda_duplex.launch_counts()
     got = profile_duplex_rowcost.run_variant(tokens, target_rev, em, maxloop, variant)
     torch.cuda.synchronize()
-    assert cuda_duplex.rowcost_launches[variant] == before + 1
+    after = cuda_duplex.launch_counts()
+    assert after[variant] == before[variant] + 1
+    assert all(after[v] == before[v] for v in after if v != variant)
     assert got.shape == (128,) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("b", [1, 100])
+def test_clocked_stamps_are_monotone_per_warp_and_row(card, b):
+    tokens, target_rev, em, maxloop = profile_duplex_rowcost.seeded_inputs(card)
+    tokens = tokens[:b]
+    plan = cuda_duplex.make_plan(target_rev[None], em, maxloop)
+    stamps, timer = cuda_duplex.clock_buffers(tokens.shape[1], plan.l2, card)
+    got = cuda_duplex.launch_variant(plan, tokens, "clocked", (stamps, timer))[:, 0]
+    want = cuda_duplex.duplex_energies_plain(tokens, target_rev[None], em, maxloop)[:, 0]
+    assert torch.equal(got, want), float((got - want).abs().max())
+    s = stamps.cpu().numpy()
+    if b == 1:
+        assert not s[1].any()  # one block: it is the first, and no last one stamps
+    written = s[:1] if b == 1 else s
+    assert (written > 0).all()
+    rows =written.reshape(written.shape[0], written.shape[1], -1)  # stamps in row order
+    assert (np.diff(rows, axis=-1) > 0).all()
+    parts = profile_duplex_rowcost.clock_parts(s, timer.cpu().numpy())
+    assert 500 < parts["sm_clock_mhz"] < 2500 and parts["row_cycles"] > 0
 
 
 def _calibrated(card):
@@ -181,7 +208,7 @@ def test_plan_call_launches_once(card):
     got = cuda_duplex.duplex_energies(tokens, targets_rev, em, maxloop, plan=plan)
     after = cuda_duplex.launch_counts()
     assert after[cuda_duplex.MAIN] == before[cuda_duplex.MAIN] + 1
-    assert all(after[v] == before[v] for v in cuda_duplex.VARIANTS)
+    assert all(after[v] == before[v] for v in cuda_duplex.ROWCOST_BUILDS)
     want = cuda_duplex.duplex_energies_plain(tokens, targets_rev, em, maxloop)
     assert torch.equal(got, want), float((got - want).abs().max())
     with pytest.raises(ValueError, match="plan was made for other"):
