@@ -222,7 +222,17 @@ Phases (any failed check raises, and the script exits nonzero):
         against the card: Rosetta 3msi within rtol 1e-4 / atol 1e-5 and
         the duplex DP against the kernel on 100 L100_RNA1 rows within
         rtol 1e-4 / atol 1e-3;
-  15. print the wall of each phase, one JSON line describing each kernel,
+  15. the measurement entry points (flexs_tpu_torch.bench and
+     bench_surrogate), small; each stage's JSON line must have its keys,
+     in order, and name this card:
+     a. bench.run_rna_oracle at B=100, 5 calls a reading: the kernel on a
+        plan, bitwise equal to its plain version on bench.py's check
+        batch, 19 launches;
+     b. bench.run_single with one run_once (seed 0, no warm-up): phase
+        5b's run, the same top true_score, no duplex launch;
+     c. bench_surrogate.bench_tfbind_cmaes cut to 1 round on SIX6_REF_R1
+        from one start: DeviceCMAESNAM with the 3-CNN ensemble surrogate;
+  16. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -231,6 +241,7 @@ launched fails, and so does a main-path run that launched a row-cost
 build.  The script needs one CUDA card and imports nothing of JAX.
 """
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -443,6 +454,14 @@ INFRA_RESUME_ROUNDS = (2, 3)
 NATIVE_ROSETTA_ROWS, NATIVE_DUPLEX_ROWS = 1024, 100
 NATIVE_ROSETTA_TOL = dict(rtol=1e-4, atol=1e-5)
 NATIVE_DUPLEX_TOL = dict(rtol=1e-4, atol=1e-3)
+# Phase 15: the bench's stages, small.  The RNA oracle stage at B=100 with 5
+# calls a reading launches the kernel once for its check batch and 3 x (1 +
+# 5) times for its readings; the 3-CNN CMA-ES bench runs 1 round from one
+# start on one landscape.
+BENCH_ORACLE_BATCH, BENCH_ORACLE_REPS = 100, 5
+BENCH_ORACLE_LAUNCHES = 1 + 3 * (1 + BENCH_ORACLE_REPS)
+BENCH_CMAES = dict(rounds=1, landscapes=("SIX6_REF_R1",), starts_n=1)
+BENCH_CMAES_KEYS = ["bench", "rounds", "runs", "mean_max", "s_per_run", "s", "card"]
 
 
 def card_line() -> str:
@@ -2560,6 +2579,67 @@ def profiling_on_card(flexs, cuda_duplex, profiling, rna, tmp: str, kernel_ms_b1
     return reading
 
 
+def captured(fn):
+    """(fn(), the JSON lines it printed); what it printed is printed again."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="")
+    return out, [json.loads(line) for line in buf.getvalue().splitlines()
+                 if line.startswith("{")]
+
+
+def bench_phases(cuda_duplex, card: str, tf_fused_top: float) -> dict:
+    """Phase 15 (a-c): the stages of the measurement entry points, small."""
+    from flexs_tpu_torch import bench, bench_surrogate
+
+    steps = [("a rna oracle", time.perf_counter())]
+    readings = {}
+    # a. The RNA oracle stage: its readings launch the kernel on a plan.
+    cuda_duplex.reset_launch_counts()
+    (keys, energies), lines = captured(lambda: bench.run_rna_oracle(
+        batch=BENCH_ORACLE_BATCH, reps=BENCH_ORACLE_REPS))
+    launches = path_launches(cuda_duplex, "bench rna_oracle stage")
+    assert launches == BENCH_ORACLE_LAUNCHES, launches
+    assert keys["duplex_kernel_bitexact_vs_plain"] is True, keys
+    assert energies.shape == (64, 1) and torch.isfinite(energies).all()
+    stage_lines = lines
+    readings["rna_oracle"] = {**keys, "duplex_launches": launches}
+
+    # b. The single-run stage with one run of run_once, seed 0: phase 5b's run.
+    steps.append(("b single run", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    (keys, tops), lines = captured(lambda: bench.run_single(seeds=(0,), warmup_seed=None))
+    no_duplex_launches(cuda_duplex, "15b")
+    assert tops == [tf_fused_top], (tops, tf_fused_top)
+    stage_lines += lines
+    readings["single_run"] = keys
+
+    # c. The 3-CNN CMA-ES bench on TF-Bind-8, cut to 1 round, 1 landscape, 1 start.
+    steps.append(("c tfbind cmaes", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    (mean_max, s_per_run), lines = captured(lambda: bench_surrogate.bench_tfbind_cmaes(
+        BENCH_CMAES["rounds"], landscapes=BENCH_CMAES["landscapes"],
+        starts_n=BENCH_CMAES["starts_n"]))
+    no_duplex_launches(cuda_duplex, "15c")
+    assert len(lines) == 1 and list(lines[0]) == BENCH_CMAES_KEYS, lines
+    assert lines[0]["card"] == card and lines[0]["runs"] == 1, lines
+    assert 0 < mean_max <= 1 and s_per_run > 0, (mean_max, s_per_run)
+    readings["tfbind_cmaes"] = lines[0]
+
+    # Each stage's line: its keys in order, on this card.
+    assert [line["stage"] for line in stage_lines] == ["rna_oracle", "single_run"], stage_lines
+    for line in stage_lines:
+        assert list(line) == ["stage", *bench.STAGE_KEYS[line["stage"]], "stage_wall_s",
+                              "card"], line
+        assert line["card"] == card, line
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 15 step walls (s): {json.dumps(walls)}")
+    readings["step_walls_s"] = walls
+    return readings
+
+
 def rowcost_phase(cuda_duplex, rowcost, phase2_ms: float):
     """Phase 7: `rowcost.measure` on its seeded inputs, every build launched.
 
@@ -2850,12 +2930,17 @@ def main() -> int:
     infra_readings = infrastructure_phases(flexs, cuda_duplex, card, timings[100]["ms"])
     print(f"infrastructure readings: {json.dumps(infra_readings)}")
 
+    stamps.append(("15 bench", time.perf_counter()))
+    # 15. The measurement entry points' stages, small.
+    bench_readings = bench_phases(cuda_duplex, card, tf_readings["fused_top"])
+    print(f"bench readings: {json.dumps(bench_readings)}")
+
     # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 15. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 16. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -2878,6 +2963,7 @@ def main() -> int:
         "resumed_host_launches": infra_readings["resume_explorer"]["duplex_launches"],
         "traced_round_launches": infra_readings["profiling"]["traced_round_duplex_launches"],
         "native_check_launches": infra_readings["native"]["duplex_launches"],
+        "bench_rna_oracle_launches": bench_readings["rna_oracle"]["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

@@ -53,7 +53,8 @@ def test_port_sources_are_found():
                    "runtime/dqn_runner.py", "runtime/ppo_runner.py",
                    "runtime/dyna_ppo_runner.py", "runtime/dyna_ppo_mutative_runner.py",
                    "parallel/multihost.py", "utils/checkpointing.py", "utils/profiling.py",
-                   "cli.py", "native.py"):
+                   "cli.py", "native.py", "bench.py", "bench_sweep.py", "bench_fold.py",
+                   "bench_surrogate.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -85,7 +86,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.runtime.ppo_runner, flexs_tpu_torch.runtime.dyna_ppo_runner, "
         "flexs_tpu_torch.runtime.dyna_ppo_mutative_runner, flexs_tpu_torch.parallel.multihost, "
         "flexs_tpu_torch.utils.checkpointing, flexs_tpu_torch.utils.profiling, "
-        "flexs_tpu_torch.cli, flexs_tpu_torch.native; "
+        "flexs_tpu_torch.cli, flexs_tpu_torch.native, flexs_tpu_torch.bench, "
+        "flexs_tpu_torch.bench_sweep, flexs_tpu_torch.bench_fold, "
+        "flexs_tpu_torch.bench_surrogate; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )
