@@ -232,7 +232,19 @@ Phases (any failed check raises, and the script exits nonzero):
         5b's run, the same top true_score, no duplex launch;
      c. bench_surrogate.bench_tfbind_cmaes cut to 1 round on SIX6_REF_R1
         from one start: DeviceCMAESNAM with the 3-CNN ensemble surrogate;
-  16. print the wall of each phase, one JSON line describing each kernel,
+  16. the paper table and the north-star grid (flexs_tpu_torch.
+     run_paper_table, bench_northstar and aggregate_northstar), small; no
+     duplex build may launch:
+     a. run_paper_table with device-cmaes and random, 1 start, 1 round:
+        the per-start, row and JSON lines parse and agree, each JSON line
+        names this card, and the fused row's max equals a standalone
+        DeviceCMAESNAM run of the same start and seed;
+     b. bench_northstar with random and adalead over 8 landscapes, 1
+        round, a chunk of 8: a line per family (8 cells each) and the
+        summary;
+     c. aggregate_northstar over b's output: its summary equals b's in
+        total_cells and total_seqs, and its artifact holds both families;
+  17. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -246,6 +258,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -343,7 +356,7 @@ COMPONENT_TOLERANCE = 1e-5
 COMPONENT_TRAIN_TOLERANCE = CMAES_TOLERANCE = 1e-4
 # (b) The paper's 3MSI table row (scripts/run_paper_table.py:100-160) cut in
 # depth to 2 rounds; each top printed beside the reference's 10-round mean
-# (run_paper_table.py:19-43, a reading, not a gate).
+# (`run_paper_table.REFERENCE`, a reading, not a gate).
 EXPLORER_RUN = dict(rounds=2, sequences_batch_size=100, model_queries_per_batch=2000)
 PAPER_EXPLORERS = ("random", "genetic", "bo", "cmaes", "cbas", "dbas", "dqn", "ppo", "dynappo",
                    "dynappo_mutative")
@@ -354,9 +367,6 @@ PAPER_RUN_CUTS = {"dynappo_mutative": dict(model_queries_per_batch=500)}
 # DynaPPO's device busy share is read over a steady window of `act` calls
 # in round 1's model phase (calls 1,000-2,999 of 8,712 a round).
 DYNAPPO_PROFILED_ACTS = (1000, 2000)
-PAPER_REFERENCE_MEAN = {"random": 0.417, "genetic": 1.000, "bo": 0.996, "cmaes": 0.887,
-                        "cbas": 0.555, "dbas": 0.679, "dynappo": 0.934, "dqn": 0.934,
-                        "ppo": 0.934, "dynappo_mutative": 0.934}
 # (c) GPR_BO over all of TF-Bind-8, and (d) the kernel's path on L100_RNA1:
 # BO over NAM 0.9 for 3 rounds and DynaPPO with its 11 default members for
 # 2, each pinned (duplex launches, top true_score) from its first run on an
@@ -400,7 +410,6 @@ FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
 # readings beside phase 11b's host runs and the reference's DynaPPO row.
 RL_RUN = dict(sequences_batch_size=100, model_queries_per_batch=2000)
 RL_RUN_ROUNDS = {"dqn": 1, "ppo": 1, "dynappo": 10, "dynappo_mutative": 3}
-REFERENCE_DYNAPPO = {"mean": 0.934, "best": 0.972}
 # The PPO update of 13a's 3MSI run on the card vs the same update on the CPU
 # from the card's inputs: the parameters' distance, relative to the
 # update's own size (10 Adam steps; a gradient entry near 0 may take
@@ -462,6 +471,16 @@ BENCH_ORACLE_BATCH, BENCH_ORACLE_REPS = 100, 5
 BENCH_ORACLE_LAUNCHES = 1 + 3 * (1 + BENCH_ORACLE_REPS)
 BENCH_CMAES = dict(rounds=1, landscapes=("SIX6_REF_R1",), starts_n=1)
 BENCH_CMAES_KEYS = ["bench", "rounds", "runs", "mean_max", "s_per_run", "s", "card"]
+# Phase 16: the paper table and the north-star grid, small.  The table's fused
+# CMA-ES and host Random rows from 3MSI's first start for 1 round; the grid's
+# Random and Adalead families over 8 TF-Bind landscapes, 1 round, one chunk.
+PAPER_TABLE_SMOKE = ["--explorers", "device-cmaes", "random", "--starts", "1", "--rounds", "1"]
+PAPER_ROW_KEYS = ["explorer", "starts", "start_offset", "rounds", "maxes", "mean", "best",
+                  "reference", "wall_s", "card"]
+NORTHSTAR_SMOKE = ["--families", "random", "adalead", "--landscapes", "8", "--rounds", "1",
+                   "--chunk", "8"]
+NORTHSTAR_FAMILY_KEYS = ["family", "signal_strengths", "cells", "wall_s", "seqs", "seqs_per_sec",
+                         "mean_max_fitness", "min_max_fitness", "card"]
 
 
 def card_line() -> str:
@@ -1533,37 +1552,6 @@ def explorer_components_card_vs_cpu(flexs, card: str) -> dict:
     return diffs
 
 
-def paper_explorer(flexs, name: str, model, landscape, start: str, alphabet: str, **run):
-    """The explorer `name` at scripts/run_paper_table.py:100-160's settings, seed 0."""
-    from flexs_tpu_torch.utils.vae import VAE
-
-    ex = flexs.baselines.explorers
-    common = dict(starting_sequence=start, alphabet=alphabet, **run)
-    if name == "random":
-        return ex.Random(model, seed=0, **common)
-    if name == "genetic":
-        return ex.GeneticAlgorithm(model, population_size=100,
-                                   parent_selection_strategy="wright-fisher",
-                                   children_proportion=0.2, beta=0.05, seed=0, **common)
-    if name == "bo":
-        return ex.BO(model, seed=0, **common)
-    if name == "cmaes":
-        return ex.CMAES(model, population_size=15, seed=0, maximize=True, **common)
-    if name in ("cbas", "dbas"):
-        vae = VAE(seq_length=len(start), alphabet=alphabet, intermediate_dim=250, epochs=10,
-                  verbose=False, seed=0)
-        return ex.CbAS(model, vae, algo=name, seed=0, **common)
-    if name == "dqn":
-        return ex.DQN(model, seed=0, **common)
-    if name == "ppo":
-        return ex.PPO(model, seed=0, **common)
-    if name == "dynappo":
-        return ex.DynaPPO(landscape, env_batch_size=16, seed=0, **common)
-    if name == "dynappo_mutative":
-        return ex.DynaPPOMutative(landscape, seed=0, **common)
-    raise ValueError(name)
-
-
 def check_explorer_frame(df, landscape, rounds: int, batch: int, start: str) -> None:
     """A host explorer's frame: its rounds, row counts, costs, and true scores from the oracle."""
     cols = ["sequence", "model_score", "true_score", "round", "model_cost",
@@ -1618,6 +1606,7 @@ def profile_acts(agent, first: int, count: int) -> dict:
 
 def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
     """Phase 11 (a-d): the host explorers on the card."""
+    from flexs_tpu_torch import run_paper_table
     from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
     from flexs_tpu_torch.profile_main_path import device_kernels
 
@@ -1636,7 +1625,7 @@ def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
         land = rosetta.RosettaFolding(**problem["params"])
         model = flexs.LandscapeAsModel(land)
         run = {**EXPLORER_RUN, **PAPER_RUN_CUTS.get(name, {})}
-        explorer = paper_explorer(flexs, name, model, land, start, flexs.AAS, **run)
+        explorer = run_paper_table.make(name, model, land, start, alphabet=flexs.AAS, **run)
         reading = {}
         if name == "dynappo":
             # Its cost is host round trips: count the agent's act calls and
@@ -1653,7 +1642,7 @@ def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
             df, wall, top = host_run(explorer, land, rounds, start)
         reading.update(wall_s=wall, top=top, rows=len(df),
                        model_cost=int(df["model_cost"].iloc[-1]),
-                       reference_10_round_mean=PAPER_REFERENCE_MEAN[name])
+                       reference_10_round_mean=run_paper_table.REFERENCE[name][0])
         paper[name] = reading
         print(f"3msi {name} ({rounds} rounds, start {start[:8]}..): "
               f"{json.dumps(reading)} [{card}]")
@@ -1690,7 +1679,8 @@ def explorer_phases(flexs, cuda_duplex, card: str) -> dict:
         land = rna.RNABinding(**reg["L100_RNA1"]["params"])
         model = flexs.baselines.models.NoisyAbstractModel(land, 0.9, seed=0)
         run = {**EXPLORER_RUN, "rounds": n_rounds}
-        explorer = paper_explorer(flexs, name, model, land, l100_start, flexs.RNAA, **run)
+        explorer = run_paper_table.make(name, model, land, l100_start, alphabet=flexs.RNAA,
+                                         **run)
         cuda_duplex.reset_launch_counts()
         (df, _), wall = timed(lambda: explorer.run(land, verbose=False))
         launches = path_launches(cuda_duplex, f"L100_RNA1 {name}")
@@ -1760,7 +1750,7 @@ def same_as_alone(row, land, cls, alphabet, run) -> None:
 def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     """Phase 12 (a-d): the fused runners of the non-RL explorers on the card."""
     import pandas as pd
-    from flexs_tpu_torch import runtime
+    from flexs_tpu_torch import run_paper_table, runtime
     from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
     from flexs_tpu_torch.parallel import run_landscape_robustness_sweep, run_robustness_sweep
     from flexs_tpu_torch.runtime import jit_runner
@@ -1791,7 +1781,7 @@ def fused_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
         check_fused_frame(df, land, run["rounds"], run["sequences_batch_size"], start,
                           unique=name == "ga")
         reading.update(rounds=run["rounds"], host_top_2_rounds=host_tops[host_name]["top"],
-                       reference_10_round_mean=PAPER_REFERENCE_MEAN[host_name])
+                       reference_10_round_mean=run_paper_table.REFERENCE[host_name][0])
         paper[name] = reading
         print(f"fused 3msi {name} ({run['rounds']} rounds, perfect model): "
               f"{json.dumps(reading)} [{card}]")
@@ -2147,7 +2137,7 @@ def ppo_train_card_vs_cpu(seen: dict) -> dict:
 def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
     """Phase 13 (a-d): the fused RL runners on the card."""
     import pandas as pd
-    from flexs_tpu_torch import runtime
+    from flexs_tpu_torch import run_paper_table, runtime
     from flexs_tpu_torch.landscapes import rna, rosetta, tf_binding
     from flexs_tpu_torch.parallel import run_landscape_robustness_sweep, run_robustness_sweep
     from flexs_tpu_torch.runtime import jit_runner
@@ -2184,7 +2174,7 @@ def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
         check_fused_frame(df, land, rounds, batch, start, unique=name != "dqn")
         reading.update(rounds=rounds, syncs_per_round=reading["host_syncs"] / rounds,
                        host_top_2_rounds=host_tops[name]["top"],
-                       reference_dynappo=REFERENCE_DYNAPPO)
+                       reference_dynappo=run_paper_table.REFERENCE["dynappo"])
         if name == "dynappo":
             assert reading["host_syncs"] == 0, "DynaPPO synced inside a round"
         if name == "ppo":
@@ -2354,8 +2344,6 @@ def read_text(path: str) -> str:
 
 def infrastructure_phases(flexs, cuda_duplex, card: str, kernel_ms_b100: float) -> dict:
     """Phase 14 (a-e): mesh=, checkpointing, profiling, the CLI and the native binding."""
-    import tempfile
-
     import pandas as pd
     import torch.distributed as dist
     from flexs_tpu_torch import cli, native
@@ -2579,14 +2567,19 @@ def profiling_on_card(flexs, cuda_duplex, profiling, rna, tmp: str, kernel_ms_b1
     return reading
 
 
-def captured(fn):
-    """(fn(), the JSON lines it printed); what it printed is printed again."""
+def printed(fn):
+    """(fn(), what it printed); what it printed is printed again."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = fn()
     print(buf.getvalue(), end="")
-    return out, [json.loads(line) for line in buf.getvalue().splitlines()
-                 if line.startswith("{")]
+    return out, buf.getvalue()
+
+
+def captured(fn):
+    """(fn(), the JSON lines it printed); what it printed is printed again."""
+    out, text = printed(fn)
+    return out, [json.loads(line) for line in text.splitlines() if line.startswith("{")]
 
 
 def bench_phases(cuda_duplex, card: str, tf_fused_top: float) -> dict:
@@ -2636,6 +2629,81 @@ def bench_phases(cuda_duplex, card: str, tf_fused_top: float) -> dict:
     steps.append(("end", time.perf_counter()))
     walls = step_walls(steps)
     print(f"phase 15 step walls (s): {json.dumps(walls)}")
+    readings["step_walls_s"] = walls
+    return readings
+
+
+def paper_northstar_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 16 (a-c): the paper table, the north-star grid and its aggregator, small."""
+    from flexs_tpu_torch import aggregate_northstar, bench_northstar, run_paper_table
+
+    steps = [("a paper table", time.perf_counter())]
+    readings = {}
+    # a. The table's fused CMA-ES and host Random rows, 1 start, 1 round.
+    cuda_duplex.reset_launch_counts()
+    rc, text = printed(lambda: run_paper_table.main(PAPER_TABLE_SMOKE))
+    no_duplex_launches(cuda_duplex, "16a")
+    assert rc == 0, rc
+    lines = text.splitlines()
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    names = PAPER_TABLE_SMOKE[1:3]
+    assert [r["explorer"] for r in rows] == names, rows
+    for row in rows:
+        name = row["explorer"]
+        assert list(row) == PAPER_ROW_KEYS and row["card"] == card, row
+        assert row["starts"] == len(row["maxes"]) == 1 and row["rounds"] == 1, row
+        assert 0 < row["mean"] == row["best"] == row["maxes"][0] <= 1, row
+        assert any(line.startswith(f"  {name} start 1/1: max {row['maxes'][0]:.3f}")
+                   for line in lines), (name, lines)
+        assert any(line.startswith(f"{name:<10} {row['mean']:>8.3f}/") for line in lines), name
+    start = run_paper_table.paper_starts(1)[0]
+    land = flexs.landscapes.rosetta.RosettaFolding(
+        **flexs.landscapes.rosetta.registry()["3msi"]["params"])
+    cuda_duplex.reset_launch_counts()
+    df, _ = flexs.runtime.DeviceCMAESNAM(
+        land, flexs.AAS, rounds=1, sequences_batch_size=100, model_queries_per_batch=2000,
+        starting_sequence=start, model="perfect", maximize=True, seed=0).run(verbose=False)
+    no_duplex_launches(cuda_duplex, "16a standalone")
+    alone = float(df["true_score"].max())
+    assert rows[0]["maxes"][0] == alone, (rows[0], alone)
+    readings["paper_table"] = {"rows": rows, "standalone_device_cmaes_max": alone}
+
+    # b. The north-star grid's Random and Adalead families, small.
+    steps.append(("b northstar", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    rc, ns_text = printed(lambda: bench_northstar.main(NORTHSTAR_SMOKE))
+    no_duplex_launches(cuda_duplex, "16b")
+    assert rc == 0, rc
+    ns_lines = [json.loads(line) for line in ns_text.splitlines() if line.startswith("{")]
+    *families, summary = ns_lines
+    assert [f["family"] for f in families] == ["random", "adalead"], ns_lines
+    for fam in families:
+        assert list(fam) == NORTHSTAR_FAMILY_KEYS and fam["card"] == card, fam
+        assert fam["cells"] == 8 and fam["seqs"] > 0 and fam["wall_s"] > 0, fam
+    assert summary["metric"] == "northstar_all_explorers_all_landscapes", summary
+    assert summary["landscapes"] == 8 and summary["n_devices"] == 1, summary
+    assert summary["total_cells"] == sum(f["cells"] for f in families), summary
+    assert summary["total_seqs"] == sum(f["seqs"] for f in families), summary
+
+    # c. The aggregator over b's output.
+    steps.append(("c aggregate", time.perf_counter()))
+    with tempfile.TemporaryDirectory() as tmp:
+        log, out = os.path.join(tmp, "northstar.log"), os.path.join(tmp, "northstar.json")
+        with open(log, "w") as f:
+            f.write(ns_text)
+        rc, agg_lines = captured(lambda: aggregate_northstar.main([log, "--out", out]))
+        with open(out) as f:
+            artifact = json.load(f)
+    assert rc == 0, rc
+    (agg,) = agg_lines
+    for key in ("total_cells", "total_seqs"):
+        assert agg[key] == summary[key], (key, agg, summary)
+    assert agg == artifact["summary"] and agg["card"] == card, (agg, artifact["summary"])
+    assert [r["family"] for r in artifact["families"]] == ["random", "adalead"], artifact
+    readings["northstar"] = {"families": families, "summary": summary, "aggregate": agg}
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 16 step walls (s): {json.dumps(walls)}")
     readings["step_walls_s"] = walls
     return readings
 
@@ -2935,12 +3003,17 @@ def main() -> int:
     bench_readings = bench_phases(cuda_duplex, card, tf_readings["fused_top"])
     print(f"bench readings: {json.dumps(bench_readings)}")
 
+    stamps.append(("16 paper table, northstar", time.perf_counter()))
+    # 16. The paper table, the north-star grid and its aggregator, small.
+    paper_readings = paper_northstar_phases(flexs, cuda_duplex, card)
+    print(f"paper table and northstar readings: {json.dumps(paper_readings)}")
+
     # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 16. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 17. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -2964,6 +3037,7 @@ def main() -> int:
         "traced_round_launches": infra_readings["profiling"]["traced_round_duplex_launches"],
         "native_check_launches": infra_readings["native"]["duplex_launches"],
         "bench_rna_oracle_launches": bench_readings["rna_oracle"]["duplex_launches"],
+        "paper_table_northstar_launches": 0,  # phase 16 requires none
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

@@ -238,8 +238,11 @@ class _MutativeRun(AsyncCellRun):
                        for c in range(C)]
             self.run_phase(self.max_model_b, False, budgets, gen)
 
-        bound = max(1, max(gen.bounds))
-        novel = self.novel_to_measured(gen.pk[:, :bound], self.measured_pk()) & gen.live_rows()
+        # At least B pool columns (unfilled ones rank last, invalid), so a
+        # round proposes B rows even when its pool holds fewer.
+        bound = min(self.gen_cap, max(B, max(gen.bounds)))
+        filled = torch.arange(bound, device=self.dev) < gen.n[:, None]
+        novel = self.novel_to_measured(gen.pk[:, :bound], self.measured_pk()) & filled
         proposals, top_vals, _, valid = self.top_b(
             gen.tokens[:, :bound], torch.where(novel, gen.fit[:, :bound], -torch.inf), gen.n)
         valid = valid & (torch.arange(B, device=self.dev) < max(B - exp_budget, 0))

@@ -136,3 +136,77 @@ def test_default_device_without_card_raises(landscape):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceCMAESNAM(landscape, flexs.DNAA, starting_sequence=START, **RUN)
+
+
+# The 3-CNN ensemble surrogate (the runner's default spec): the port's mean
+# top against JAX's over the same seeds, at 3 rounds x 20 x 200 on
+# SIX6_REF_R1 from STARTS[0].  The band is three standard errors of the
+# difference of two 4-seed means, from each package's per-run spread over
+# 96 seeds at this size (`test_surrogate_band_covers_the_seed_spread`).
+SURROGATE_RUN = dict(rounds=3, sequences_batch_size=20, model_queries_per_batch=200,
+                     maximize=True, model="surrogate")
+SURROGATE_BAND = 0.17
+SURROGATE_SPREAD_SEEDS = tuple(range(96))
+# The full-size comparison: scripts/bench_surrogate.py:71-103's bench (10
+# rounds x 100 x 2000 on SIX6_REF_R1 and VAX2_REF_R1 from STARTS[:2]) over
+# seeds 0-7, 32 runs a package; the means must differ by less than twice
+# the standard error of their difference.
+PAPER_SURROGATE_RUN = dict(rounds=10, sequences_batch_size=100, model_queries_per_batch=2000,
+                           maximize=True, model="surrogate")
+PAPER_SURROGATE_LANDSCAPES = ("SIX6_REF_R1", "VAX2_REF_R1")
+PAPER_SURROGATE_SEEDS = tuple(range(8))
+
+
+def _surrogate_tops(name: str, starts, seeds, run: dict):
+    """(port tops, JAX tops) of DeviceCMAESNAM with the 3-CNN surrogate, start-major."""
+    from flexs_tpu.runtime.surrogate import SurrogateSpec as JaxSpec
+    from flexs_tpu_torch.runtime.surrogate import SurrogateSpec
+
+    land = flexs.landscapes.TFBinding(name=name, device="cpu")
+    jax_land = flexs_tpu.landscapes.TFBinding(
+        **flexs_tpu.landscapes.tf_binding.registry()[name]["params"])
+    port, ref = [], []
+    for start in starts:
+        for seed in seeds:
+            port.append(DeviceCMAESNAM(
+                land, flexs.DNAA, starting_sequence=start, seed=seed, device="cpu",
+                surrogate_spec=SurrogateSpec(ensemble_size=3), **run,
+            ).run(verbose=False)[0]["true_score"].max())
+            ref.append(jax_runtime.DeviceCMAESNAM(
+                jax_land, flexs.DNAA, starting_sequence=start, seed=seed,
+                surrogate_spec=JaxSpec(ensemble_size=3), **run,
+            ).run(verbose=False)[0]["true_score"].max())
+    return np.array(port), np.array(ref)
+
+
+def test_surrogate_quality_matches_jax():
+    port, ref = _surrogate_tops("SIX6_REF_R1", [START], SEEDS, SURROGATE_RUN)
+    assert abs(port.mean() - ref.mean()) <= SURROGATE_BAND, (port, ref)
+
+
+@pytest.mark.slow
+def test_surrogate_band_covers_the_seed_spread():
+    """SURROGATE_BAND is at least three standard errors of a 4-seed difference, and no gap."""
+    port, ref = _surrogate_tops("SIX6_REF_R1", [START], SURROGATE_SPREAD_SEEDS, SURROGATE_RUN)
+    se4 = np.sqrt((port.var(ddof=1) + ref.var(ddof=1)) / len(SEEDS))
+    se = np.sqrt((port.var(ddof=1) + ref.var(ddof=1)) / len(SURROGATE_SPREAD_SEEDS))
+    print(f"port mean {port.mean():.4f} sd {port.std(ddof=1):.4f}; "
+          f"JAX mean {ref.mean():.4f} sd {ref.std(ddof=1):.4f}; 4-seed se {se4:.4f}")
+    assert 3 * se4 <= SURROGATE_BAND + 0.005, se4
+    assert abs(port.mean() - ref.mean()) < 2 * se, (port.mean(), ref.mean())
+
+
+@pytest.mark.slow
+def test_paper_surrogate_quality_matches_jax():
+    """The 3-CNN CMA-ES bench over 32 runs a package: any gap is within seed spread."""
+    port, ref = [], []
+    for name in PAPER_SURROGATE_LANDSCAPES:
+        p, r = _surrogate_tops(name, tf_binding.STARTS[:2], PAPER_SURROGATE_SEEDS,
+                               PAPER_SURROGATE_RUN)
+        port += list(p)
+        ref += list(r)
+    port, ref = np.array(port), np.array(ref)
+    se = np.sqrt(port.var(ddof=1) / len(port) + ref.var(ddof=1) / len(ref))
+    print(f"port mean {port.mean():.4f} sd {port.std(ddof=1):.4f}; "
+          f"JAX mean {ref.mean():.4f} sd {ref.std(ddof=1):.4f}; se of the difference {se:.4f}")
+    assert abs(port.mean() - ref.mean()) < 2 * se, (port, ref)

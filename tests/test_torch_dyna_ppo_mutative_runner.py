@@ -85,6 +85,23 @@ def test_proposal_counts_obey_the_annealed_budget(landscape):
     assert got == want, got
 
 
+def test_a_pool_smaller_than_the_batch_still_proposes():
+    """A round whose model phase records fewer than B sequences (B = 100 of a 100-query budget).
+
+    The proposals are the pool's top B, the unfilled ranks invalid, as
+    JAX's top-k over its fixed-capacity pool gives them; the port's pool
+    once returned fewer than B columns and the round raised.
+    """
+    land = flexs.landscapes.TFBinding(name="VAX2_REF_R1", device="cpu")
+    df, _ = DeviceDynaPPOMutativeNAM(
+        land, flexs.DNAA, rounds=2, sequences_batch_size=100, model_queries_per_batch=100,
+        starting_sequence=START, model="perfect", seed=0, device="cpu").run(verbose=False)
+    want = [100 - dyna_ppo_mutative_runner.experiment_budget(2, 100, r) for r in range(2)]
+    got = [int((df["round"] == r + 1).sum()) for r in range(2)]
+    assert 0 < got[0] and all(0 < g <= w for g, w in zip(got, want)), (got, want)
+    assert df["sequence"].is_unique
+
+
 @pytest.mark.parametrize("model", ["nam", "perfect"])
 def test_truth_matches_both_landscapes(landscape, jax_landscape, model):
     df, _ = _run(landscape, model=model)

@@ -139,6 +139,33 @@ def test_item_17_modules_are_ported():
         assert names and not [n for n in names if not hasattr(port, n)], (module, names)
 
 
+def _script_tree(script: str):
+    path = os.path.join(ROOT, "scripts", script)
+    with open(path) as f:
+        return ast.parse(f.read(), filename=path)
+
+
+def _script_constant(script: str, name: str):
+    """The literal bound to `name` at the top level of scripts/<script>."""
+    for node in _script_tree(script).body:
+        if isinstance(node, ast.Assign) and [t.id for t in node.targets] == [name]:
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def test_item_18_paper_table_and_northstar_names():
+    """REFERENCE, make's leading parameters and FAMILIES are the scripts'."""
+    from flexs_tpu_torch import bench_northstar, run_paper_table
+
+    assert run_paper_table.REFERENCE == _script_constant("run_paper_table.py", "REFERENCE")
+    assert bench_northstar.FAMILIES == _script_constant("bench_northstar.py", "FAMILIES")
+    make = next(n for n in ast.walk(_script_tree("run_paper_table.py"))
+                if isinstance(n, ast.FunctionDef) and n.name == "make")
+    want = [a.arg for a in make.args.args]
+    got = _top_level_functions("run_paper_table.py", root="flexs_tpu_torch")["make"]
+    assert got[:len(want)] == want == ["name", "model", "landscape", "start"], got
+
+
 def _top_level_functions(module: str, root: str = "flexs_tpu") -> dict:
     """{name: positional parameter names} of the top-level functions of `<root>/<module>`."""
     path = os.path.join(ROOT, root, *module.split("/"))
