@@ -56,7 +56,7 @@ Phases (any failed check raises, and the script exits nonzero):
         JAX package's 0.9444, quality readings); the first and last cells
         equal standalone runs;
      e. a generic NAM sweep, L100_RNA1..2 x starts 1-5 x ss 0.9 x seed 0
-        (10 cells, "vmap"): the duplex kernel must launch, no row-cost
+        (10 cells, "vmap", 5 rounds): the duplex kernel must launch, no row-cost
         build may, and the first and last cells equal standalone runs;
   7. row-cost builds: the path of `python -m
      flexs_tpu_torch.profile_duplex_rowcost`.  `profile_duplex_rowcost.
@@ -91,11 +91,12 @@ Phases (any failed check raises, and the script exits nonzero):
      launch:
      a. the oracle on the card against the CPU on the wild type and the
         three starts, rtol and atol 1e-4;
-     b. the fused run from ed_10_wt, NAM 0.9, 5 x 100 x 2000, under
+     b. the fused run from ed_10_wt, NAM 0.9, 1 x 100 x 2000, under
         torch.profiler (CUDA activity only): wall, queries/s, peak memory,
         device idle share and the oracle's share of the wall (CUDA events);
-     c. the host run, 2 rounds, on a landscape scoring 32 rows a pass;
-     d. a generic sweep over 1 of the 3 starts, cut to 1 round ("map");
+     c. the host run, 1 round, on a landscape scoring 32 rows a pass;
+     d. a generic sweep over 1 of the 3 starts, cut to 1 round of 100 x
+        500 ("map");
   10. the rest of the models and the exact-GP surrogate on RNABinding
      L100_RNA1 (b-d launch the main path's kernel through the oracle, and
      no row-cost build may launch):
@@ -114,7 +115,7 @@ Phases (any failed check raises, and the script exits nonzero):
      c. the host run: Adalead over an AdaptiveEnsemble of the port's 11
         DynaPPO default members, 3 rounds: wall, top, the ensemble's
         weights and each member's train seconds in the last round;
-     d. the GP sweep over starts 1-3 ("map"): wall, s per cell, mean max
+     d. the GP sweep over starts 1-2 ("map"): wall, s per cell, mean max
         fitness (a reading); its first cell equals the fused run of b and
         its last a standalone run; a 2-cell "vmap" chunk equals the map
         sweep's cells;
@@ -163,8 +164,8 @@ Phases (any failed check raises, and the script exits nonzero):
      c. DeviceGeneticAlgorithmNAM and DeviceBONAM over NAM 0.9 on L100_RNA1
         from start 1, 10 x 100 x 2000, each twice: identical frames, duplex
         launches and tops pinned (2,949, 0.632479; 111, 0.584328);
-     d. run_robustness_sweep(algorithm="ga") over 4 TF-Bind landscapes x
-        ss {0.5, 0.9} x seeds {0, 1} in one lockstep chunk of 16 cells (1
+     d. run_robustness_sweep(algorithm="ga") over 2 TF-Bind landscapes x
+        ss {0.5, 0.9} x seeds {0, 1} in one lockstep chunk of 8 cells (1
         round), and run_landscape_robustness_sweep(algorithm="bo") over
         L100_RNA1's starts 1-3: first and last cells equal standalone
         runs; wall, s per cell, sequences scored/s;
@@ -174,8 +175,8 @@ Phases (any failed check raises, and the script exits nonzero):
      a. the paper's fused RL rows on 3MSI (scripts/run_paper_table.py:
         175-240): DeviceDQNNAM, DevicePPONAM, DeviceDynaPPONAM
         (env_batch_size=16) and DeviceDynaPPOMutativeNAM over a perfect
-        model of RosettaFolding 3msi, start ed_3_wt, seed 0, 100 x 2000,
-        cut in rounds (RL_RUN_ROUNDS): run invariants, true_score ==
+        model of RosettaFolding 3msi, start ed_3_wt, seed 0, 100 x 2000
+        (DQN 100 x 1000), cut in rounds (RL_RUN_ROUNDS): run invariants, true_score ==
         get_fitness exactly on each round's rows; wall, queries/s, host
         syncs (DynaPPO's per round: none inside a round) and top beside
         phase 11b's host top and the reference's DynaPPO row (0.934, best
@@ -190,10 +191,10 @@ Phases (any failed check raises, and the script exits nonzero):
      c. the density on the card against the CPU's, on a seeded 3MSI-width
         pool, under both metrics (distances bitwise, the weighted sums
         within 1e-6 relative: the card's dot product adds in another
-        order); one DeviceDynaPPOMutativeNAM round with
+        order); one DeviceDynaPPOMutativeNAM round of 100 x 500 with
         density_metric="edit" on 3MSI beside a Hamming one;
      d. run_robustness_sweep(algorithm="dynappo") in one lockstep chunk of
-        16 cells (4 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1}) and
+        8 cells (2 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1}) and
         run_landscape_robustness_sweep(algorithm="dqn") over L100_RNA1's
         starts 1-3, 2 rounds, duplex launches pinned (4,003): first and
         last cells equal standalone runs exactly; wall, s per cell,
@@ -244,7 +245,21 @@ Phases (any failed check raises, and the script exits nonzero):
         summary;
      c. aggregate_northstar over b's output: its summary equals b's in
         total_cells and total_seqs, and its artifact holds both families;
-  17. print the wall of each phase, one JSON line describing each kernel,
+  17. the scaling bench and the three profilers (flexs_tpu_torch.
+     bench_scaling, profile_fused_run, profile_surrogate_sweep and
+     profile_compile), small; every JSON line must parse, name this card
+     and show 0 duplex launches, and no duplex build may launch:
+     a. bench_scaling's grid at 1 and 2 landscapes x 5 signal strengths,
+        1 round, after a 1-landscape warm-up: 5 and 10 cells, one rank;
+     b. profile_fused_run: the host loop at n = 200, the fused TF-Bind run
+        at budgets 100 and 200 (10 rounds) and at 1 and 2 rounds (budget
+        200), 2 reps a reading, with syncs and draw calls, and its trace
+        (one file);
+     c. profile_surrogate_sweep's h0 and h7 at 1 round and 2 cells; h7's
+        first cell equals a standalone DeviceAdaleadNAM run;
+     d. profile_compile's adalead_surrogate at 1 round in a fresh process
+        (import, first and second run) and the nvcc row;
+  18. print the wall of each phase, one JSON line describing each kernel,
      the card's name and power limit, and last the device JSON line.
 
 Each path's phase sets the launch counters of every build to 0 just before
@@ -294,6 +309,8 @@ PHASE6_HOST_ROUNDS = 3
 # its 4 seeds, the RNABinding generic sweep to 2 of its 4 landscapes.
 SURROGATE_SWEEP_SEEDS = (0,)
 RNA_SWEEP_LANDSCAPES = ("L100_RNA1", "L100_RNA2")
+# The RNABinding generic sweep's rounds: 10 until phase 17 came (27-32 s).
+RNA_SWEEP_ROUNDS = 5
 # Phase 8: the fold on the card against the CPU (bitwise expected: gathers,
 # mins and f32 adds in one order), on seeded rows and on the structured rows
 # of tests/test_rna_fold.py; and the fused RNAFolding run's top true_score.
@@ -326,8 +343,12 @@ GFP_BATCH = 100
 # The fused run is cut in depth to 5 rounds, the host run to 2 and the sweep
 # to 2 of the 3 starts since phase 12 came (the script took 1,078 s of phases
 # with 10, 3 and 3 on an H100, PERF.md, Cells), and the sweep to 1 start
-# since phase 14 came (1,038 s of phases with 2).
-GFP_FUSED_ROUNDS, GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS, GFP_SWEEP_STARTS = 5, 2, 1, 1
+# since phase 14 came (1,038 s of phases with 2), and the fused run to 1
+# round and the host run to 1 since phase 17 came (989.2 s of phases before
+# it; the 5-round fused run took 64 s of them, the 2-round host run 23 s).
+GFP_FUSED_ROUNDS, GFP_HOST_ROUNDS, GFP_SWEEP_ROUNDS, GFP_SWEEP_STARTS = 1, 1, 1, 1
+# The sweep's model queries: 2,000 (the run's) until phase 17 came (33 s).
+GFP_SWEEP_QUERIES = 500
 # Phase 10: the rest of the models and the exact-GP surrogate on RNABinding
 # L100_RNA1.  (a) Each regressor on the card against the CPU, on numpy-seeded
 # training rows at the landscape's width (labels from its oracle) and as many
@@ -345,7 +366,8 @@ TREES_MIN_CORR = {"random_forest": 0.99, "gradient_boosting": 0.99, "extra_trees
 # The fused GP run's duplex launches (the start and the 10 rounds'
 # measurements) and top true_score, as its first run on an H100 gave them.
 GP_FUSED_LAUNCHES, GP_FUSED_TOP = 11, 0.717676
-GP_SWEEP_STARTS = (1, 2, 3)
+# The GP sweep's starts: 1-3 until phase 17 came (its third cell took 8 s).
+GP_SWEEP_STARTS = (1, 2)
 # Phase 11: the host explorers.  (a) Their components on the card against
 # the CPU at 3MSI's width (L = 66, 20 letters): CMA-ES over n = 1,320 with
 # popsize 15, the VAE (intermediate 250), the Q network, the actor-critic
@@ -391,13 +413,15 @@ GRAPH_CHECK_QUERIES = 100
 # (c) GA and BO over NAM 0.9 on L100_RNA1 from start 1, 10 x 100 x 2000:
 # duplex launches and top true_score, pinned from their first run on an H100.
 FUSED_L100_PINS = {"ga": (2949, 0.632479), "bo": (111, 0.584328)}
-# (d) Sweeps: GA over 4 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1} in
-# one lockstep chunk of 16 cells, and BO over L100_RNA1's starts 1-3.  The GA
+# (d) Sweeps: GA over 2 TF-Bind landscapes x ss {0.5, 0.9} x seeds {0, 1} in
+# one lockstep chunk of 8 cells (4 landscapes, 16 cells, until phase 17
+# came; the last cell, seed 1, is held to its standalone run, so a chunk
+# seeds each cell its own), and BO over L100_RNA1's starts 1-3.  The GA
 # sweep is cut in depth to 1 round: on the 4^8 space its population runs
 # out of novel children, so a round runs many generations (a host sync
 # each), and 10 rounds took 252 s for the chunk on an H100, 2 rounds 57 s
 # with its two standalone runs (PERF.md, Cells).
-FUSED_SWEEP_LANDSCAPES, FUSED_SWEEP_SS, FUSED_SWEEP_SEEDS = 4, (0.5, 0.9), (0, 1)
+FUSED_SWEEP_LANDSCAPES, FUSED_SWEEP_SS, FUSED_SWEEP_SEEDS = 2, (0.5, 0.9), (0, 1)
 FUSED_GA_SWEEP_ROUNDS = 1
 FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
 # Phase 13: the fused RL runners.  (a) The paper's fused RL rows on 3MSI
@@ -409,7 +433,13 @@ FUSED_RNA_SWEEP_STARTS = (1, 2, 3)
 # DynaPPO's episodes became CUDA graphs (PERF.md, Cells).  Tops are
 # readings beside phase 11b's host runs and the reference's DynaPPO row.
 RL_RUN = dict(sequences_batch_size=100, model_queries_per_batch=2000)
-RL_RUN_ROUNDS = {"dqn": 1, "ppo": 1, "dynappo": 10, "dynappo_mutative": 3}
+RL_RUN_ROUNDS = {"dqn": 1, "ppo": 1, "dynappo": 5, "dynappo_mutative": 3}
+# Cut in depth since phase 17 came: DQN's 3MSI round to 1,000 model queries
+# (2,000 took 31-35 s of phase 13; its bursts still come every 100 steps),
+# DynaPPO's 3MSI run from 10 rounds to 5, and (c)'s two mutative rounds to
+# 500 queries (the edit-density one took 26 s).
+RL_RUN_CUTS = {"dqn": dict(model_queries_per_batch=1000)}
+DENSITY_RUN_QUERIES = 500
 # The PPO update of 13a's 3MSI run on the card vs the same update on the CPU
 # from the card's inputs: the parameters' distance, relative to the
 # update's own size (10 Adam steps; a gradient entry near 0 may take
@@ -430,8 +460,9 @@ RL_L100_ROUNDS = {"ppo": 2, "dynappo": 1}
 RL_L100_PINS = {"ppo": (6531, 0.579332, 0.442182), "dynappo": (134, 0.579332, 0.236061)}
 # (c) The density on the card vs the CPU: a seeded pool at 3MSI's width.
 DENSITY_POOL, DENSITY_QUERIES, DENSITY_RTOL = 2048, 16, 1e-6
-# (d) Sweeps: DynaPPO over 4 TF-Bind landscapes x ss {0.5, 0.9} x seeds
-# {0, 1} in one lockstep chunk of 16 cells, DQN over L100_RNA1's starts
+# (d) Sweeps: DynaPPO over 4 TF-Bind landscapes x ss {0.5, 0.9} x seed 0
+# in one lockstep chunk of 8 cells (16 with seeds {0, 1} until phase 17
+# came), DQN over L100_RNA1's starts
 # 1-3, each cut in rounds.  DQN runs 2 so that its walk, replay ring and
 # schedule carry across a round; its duplex launches are pinned from its
 # first run on an H100.
@@ -481,6 +512,17 @@ NORTHSTAR_SMOKE = ["--families", "random", "adalead", "--landscapes", "8", "--ro
                    "--chunk", "8"]
 NORTHSTAR_FAMILY_KEYS = ["family", "signal_strengths", "cells", "wall_s", "seqs", "seqs_per_sec",
                          "mean_max_fitness", "min_max_fitness", "card"]
+# Phase 17: the scaling bench and the three profilers, small.  bench_scaling
+# at 1 and 2 landscapes (x 5 signal strengths), 1 round; profile_fused_run's
+# budget readings at 100 and 200 (10 rounds) and rounds 1 and 2 (budget 200),
+# the host loop at n = 200, 2 reps, with a trace; profile_surrogate_sweep's
+# h0 and h7 at 1 round and 2 cells; profile_compile's adalead_surrogate at 1
+# round in its own process, and the nvcc row.
+SCALING_SMOKE = dict(widths=(1, 2), warm_landscapes=1, rounds=1)
+FUSED_PROFILE_SMOKE = dict(loop_ns=(200,), budgets=(100, 200), rounds=(1, 2), reps=2,
+                           rounds_budget=200)
+SURROGATE_PROFILE_SMOKE = dict(rounds=1, cells=2)
+COMPILE_SMOKE = (["adalead_surrogate", "nvcc"], 1)
 
 
 def card_line() -> str:
@@ -895,8 +937,9 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     cuda_duplex.reset_launch_counts()
     jit_runner.reset_run_counts()
     torch.cuda.reset_peak_memory_stats()
+    rna_run = {**PHASE6_RUN, "rounds": RNA_SWEEP_ROUNDS}
     rna_sweep, rna_wall = timed(lambda: run_landscape_robustness_sweep(
-        lands, flexs.RNAA, rna_starts, [0.9], seeds=[0], **PHASE6_RUN, cell_mode="vmap"))
+        lands, flexs.RNAA, rna_starts, [0.9], seeds=[0], **rna_run, cell_mode="vmap"))
     rna_counts = cuda_duplex.launch_counts()
     syncs = jit_runner.run_counts["syncs"]
     assert rna_counts[cuda_duplex.MAIN] > 0, "the RNABinding sweep never launched the kernel"
@@ -904,7 +947,7 @@ def surrogate_phases(flexs, cuda_duplex, card: str) -> dict:
     assert not stray, f"the RNABinding sweep launched row-cost builds: {stray}"
     assert len(rna_sweep) == 5 * len(lands)
     assert (rna_sweep["max_fitness"] >= rna_sweep["start_fitness"]).all()
-    nam_kw = dict(**PHASE6_RUN, signal_strength=0.9)
+    nam_kw = dict(**rna_run, signal_strength=0.9)
     for i, land_i in ((0, lands[0]), (len(rna_sweep) - 1, lands[-1])):
         same_as_standalone(flexs, rna_sweep.iloc[i], land_i, flexs.RNAA, nam_kw)
     rna_reading = {"cells": len(rna_sweep), "wall_s": rna_wall,
@@ -1173,8 +1216,8 @@ def _gfp_phases(flexs, cuda_duplex, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sweep, sweep_wall = timed(lambda: run_landscape_robustness_sweep(
         [land], flexs.AAS, starts[:GFP_SWEEP_STARTS], [0.9], seeds=[0],
-        rounds=GFP_SWEEP_ROUNDS, sequences_batch_size=batch, model_queries_per_batch=budget,
-        cell_mode="map"))
+        rounds=GFP_SWEEP_ROUNDS, sequences_batch_size=batch,
+        model_queries_per_batch=GFP_SWEEP_QUERIES, cell_mode="map"))
     assert len(sweep) == GFP_SWEEP_STARTS
     assert (sweep["max_fitness"] >= sweep["start_fitness"]).all()
     scored = int(sweep["model_cost"].sum() + sweep["landscape_cost"].sum())
@@ -1371,7 +1414,7 @@ def model_phases(flexs, cuda_duplex, card: str) -> dict:
     print(f"host run (Adalead + AdaptiveEnsemble of 11 members, 3 rounds): "
           f"{json.dumps(host_reading)} [{card}]")
 
-    # d. The GP sweep over starts 1-3, one cell after another, and a 2-cell
+    # d. The GP sweep over starts 1-2, one cell after another, and a 2-cell
     # lockstep chunk.
     steps.append(("d sweep", time.perf_counter()))
     sweep_kw = dict(signal_strengths=[1.0], seeds=[0], **runner_kw)
@@ -1962,23 +2005,22 @@ def density_card_vs_cpu(flexs, start: str) -> dict:
 @contextlib.contextmanager
 def timed_dqn_bursts():
     """CUDA-event spans of every DQN training burst run inside the block (a list of pairs)."""
-    from flexs_tpu_torch.runtime import dqn_runner
+    from flexs_tpu_torch.dqn_stall import patched
 
     spans = []
-    burst = dqn_runner._DQNRun.burst
 
-    def timed_burst(self, gens):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        burst(self, gens)
-        end.record()
-        spans.append((start, end))
+    def wrap(burst):
+        def timed_burst(self, gens):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            burst(self, gens)
+            end.record()
+            spans.append((start, end))
+        return timed_burst
 
-    dqn_runner._DQNRun.burst = timed_burst
-    try:
+    with patched("burst", wrap):
         yield spans
-    finally:
-        dqn_runner._DQNRun.burst = burst
 
 
 @contextlib.contextmanager
@@ -2026,31 +2068,30 @@ def captured_dqn_burst():
     starts (the burst draws its samples from it).  Device copies only, so
     the run takes no host sync; each burst overwrites the last one's.
     """
-    from flexs_tpu_torch.runtime import dqn_runner
+    from flexs_tpu_torch.dqn_stall import patched
 
     seen = {}
-    burst = dqn_runner._DQNRun.burst
     ring = ("mem_obs", "mem_next", "mem_act", "mem_act_val", "mem_rew", "mem_prio")
 
-    def capturing_burst(self, gens):
-        if not gens:
-            return burst(self, gens)
-        c, g = gens[0]
-        seen.update(
-            gen_state=g.get_state(), before=self.flats[c].detach().clone(),
-            ring={name: getattr(self, name)[c].clone() for name in ring},
-            n=self.mem_n[c].clone(),
-            run=dict(L=self.L, A=self.cfg.alphabet_size, B=self.cfg.sequences_batch_size,
-                     M=self.memory_size, train_epochs=self.train_epochs, gamma=self.gamma),
-        )
-        burst(self, gens)
-        seen["after"] = self.flats[c].detach().clone()
+    def wrap(burst):
+        def capturing_burst(self, gens):
+            if not gens:
+                return burst(self, gens)
+            c, g = gens[0]
+            seen.update(
+                gen_state=g.get_state(), before=self.flats[c].detach().clone(),
+                ring={name: getattr(self, name)[c].clone() for name in ring},
+                n=self.mem_n[c].clone(),
+                run=dict(L=self.L, A=self.cfg.alphabet_size, B=self.cfg.sequences_batch_size,
+                         M=self.memory_size, train_epochs=self.train_epochs,
+                         gamma=self.gamma),
+            )
+            burst(self, gens)
+            seen["after"] = self.flats[c].detach().clone()
+        return capturing_burst
 
-    dqn_runner._DQNRun.burst = capturing_burst
-    try:
+    with patched("burst", wrap):
         yield seen
-    finally:
-        dqn_runner._DQNRun.burst = burst
 
 
 def dqn_burst_card_vs_cpu(seen: dict) -> dict:
@@ -2157,7 +2198,8 @@ def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
         rounds = RL_RUN_ROUNDS[name]
         land = rosetta.RosettaFolding(**problem["params"])
         runner = cls(land, flexs.AAS, starting_sequence=start, model="perfect", seed=0,
-                     rounds=rounds, **run, **kwargs.get(name, {}))
+                     rounds=rounds, **{**run, **RL_RUN_CUTS.get(name, {})},
+                     **kwargs.get(name, {}))
         cuda_duplex.reset_launch_counts()
         with timed_dqn_bursts() as bursts, captured_dqn_burst() as dqn_burst, \
                 captured_ppo_train() as ppo_train:
@@ -2242,7 +2284,7 @@ def rl_runner_phases(flexs, cuda_duplex, card: str, host_tops: dict) -> dict:
         land = rosetta.RosettaFolding(**problem["params"])
         runner = runtime.DeviceDynaPPOMutativeNAM(
             land, flexs.AAS, starting_sequence=start, model="perfect", seed=0, rounds=1,
-            density_metric=metric, **run)
+            density_metric=metric, **{**run, "model_queries_per_batch": DENSITY_RUN_QUERIES})
         df, reading = fused_run(runner, land)
         # At R = 1 the annealed experiment budget is the whole batch: the
         # round proposes B - (2 B) // 2 = 0 sequences (its batches a host sync each).
@@ -2708,6 +2750,94 @@ def paper_northstar_phases(flexs, cuda_duplex, card: str) -> dict:
     return readings
 
 
+def scaling_profiler_phases(flexs, cuda_duplex, card: str) -> dict:
+    """Phase 17 (a-d): the scaling bench and the three profilers, small; no duplex launch."""
+    from flexs_tpu_torch import (
+        bench_scaling, profile_compile, profile_fused_run, profile_surrogate_sweep,
+    )
+
+    launched = 0  # duplex launches in this process and in profile_compile's subprocesses
+
+    def count_launches(phase: str, subprocess_lines=()) -> None:
+        nonlocal launched
+        launched += sum(cuda_duplex.launch_counts().values())
+        launched += sum(line["duplex_launches"] for line in subprocess_lines)
+        no_duplex_launches(cuda_duplex, phase)
+
+    def lines_on_this_card(lines, phase: str):
+        assert lines, f"phase {phase} printed no JSON line"
+        for line in lines:
+            assert line["card"] == card and line["duplex_launches"] == 0, (phase, line)
+        count_launches(phase)
+
+    steps = [("a bench_scaling", time.perf_counter())]
+    readings = {}
+    # a. Cells/s at 1 and 2 landscapes, 1 round, after a 1-landscape warm-up.
+    cuda_duplex.reset_launch_counts()
+    _, lines = captured(lambda: bench_scaling.grid_scaling(**SCALING_SMOKE))
+    lines_on_this_card(lines, "17a")
+    assert [line["cells"] for line in lines] == [5, 10], lines
+    assert all(line["n_ranks"] == 1 and line["cells_per_s"] > 0 for line in lines), lines
+    readings["bench_scaling"] = lines
+
+    # b. The single run's floor by suspect, small, with a trace.
+    steps.append(("b profile_fused_run", time.perf_counter()))
+    cuda_duplex.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        rc, lines = captured(lambda: profile_fused_run.main(["--trace", trace_dir],
+                                                             **FUSED_PROFILE_SMOKE))
+        traces = os.listdir(trace_dir)
+    assert rc == 0 and len(traces) == 1, (rc, traces)
+    lines_on_this_card(lines, "17b")
+    kinds = [line["reading"] for line in lines]
+    assert kinds == ["host_loop"] * 2 + ["budget"] * 2 + ["rounds"] * 2 + ["trace"], kinds
+    assert lines[-1]["files"] == traces, (lines[-1], traces)
+    for line in lines[2:6]:
+        assert line["host_syncs"] > 0 and line["draw_calls"] > 0 and line["wall_s"] > 0, line
+        assert line["device_ops"] > 0, line
+    readings["profile_fused_run"] = lines
+
+    # c. h0 and h7 at 1 round and 2 cells; h7's first cell equals a standalone run.
+    steps.append(("c profile_surrogate_sweep", time.perf_counter()))
+    from flexs_tpu_torch.device import resolve_device
+    from flexs_tpu_torch.runtime.surrogate import SurrogateSpec
+
+    sizes = profile_surrogate_sweep.Sizes(**SURROGATE_PROFILE_SMOKE)
+    cuda_duplex.reset_launch_counts()
+    (_, h7_frame), lines = captured(lambda: profile_surrogate_sweep.run_hypotheses(
+        ["h0", "h7"], resolve_device(), sizes))
+    lines_on_this_card(lines, "17c")
+    assert [(l["hypothesis"], l["cells"], l["cell_mode"]) for l in lines] == [
+        ("h0", 1, "single"), ("h7", 2, "map")], lines
+    df, _ = profile_surrogate_sweep._single(SurrogateSpec(), sizes=sizes).run(verbose=False)
+    count_launches("17c standalone")
+    alone = float(df["true_score"].max())
+    assert h7_frame["max_fitness"].iloc[0] == alone, (h7_frame.iloc[0].to_dict(), alone)
+    readings["profile_surrogate_sweep"] = {"lines": lines, "h7_first_cell_standalone": alone}
+
+    # d. adalead_surrogate's first and second run in a fresh process, and nvcc's wall.
+    steps.append(("d profile_compile", time.perf_counter()))
+    names, rounds = COMPILE_SMOKE
+    cuda_duplex.reset_launch_counts()
+    rc, lines = captured(lambda: profile_compile.main(names, rounds=rounds))
+    assert rc == 0 and [l["profile"] for l in lines] == names, lines
+    for line in lines:
+        assert line["card"] == card, line
+    first, nvcc = lines
+    assert first["duplex_launches"] == 0 and first["first_run_s"] > 0, first
+    assert nvcc["compile_s"] > 0 and nvcc["library_bytes"] > 0, nvcc
+    count_launches("17d", [first])
+    readings["profile_compile"] = lines
+    assert launched == 0, launched
+    readings["duplex_launches"] = launched
+    steps.append(("end", time.perf_counter()))
+    walls = step_walls(steps)
+    print(f"phase 17 step walls (s): {json.dumps(walls)}")
+    readings["step_walls_s"] = walls
+    return readings
+
+
 def rowcost_phase(cuda_duplex, rowcost, phase2_ms: float):
     """Phase 7: `rowcost.measure` on its seeded inputs, every build launched.
 
@@ -3008,12 +3138,17 @@ def main() -> int:
     paper_readings = paper_northstar_phases(flexs, cuda_duplex, card)
     print(f"paper table and northstar readings: {json.dumps(paper_readings)}")
 
+    stamps.append(("17 scaling, profilers", time.perf_counter()))
+    # 17. The scaling bench and the three profilers, small.
+    scaling_readings = scaling_profiler_phases(flexs, cuda_duplex, card)
+    print(f"scaling and profiler readings: {json.dumps(scaling_readings)}")
+
     # Wall of each phase, so the script's time can be kept under 1,000 s.
     stamps.append(("end", time.perf_counter()))
     phase_walls = step_walls(stamps)
     print(f"phase walls (s): {json.dumps(phase_walls)}")
 
-    # 17. Report: the main path's shape (B=100) at the top level, B=512 and
+    # 18. Report: the main path's shape (B=100) at the top level, B=512 and
     # B=4096 beside it, and the same call's row-cost readings.
     kernels = [{
         "name": "duplex_dp",
@@ -3038,6 +3173,7 @@ def main() -> int:
         "native_check_launches": infra_readings["native"]["duplex_launches"],
         "bench_rna_oracle_launches": bench_readings["rna_oracle"]["duplex_launches"],
         "paper_table_northstar_launches": 0,  # phase 16 requires none
+        "scaling_profilers_launches": scaling_readings["duplex_launches"],
         "max_abs_err": max_diff,
         **timings[100],
         "library_ms": None,

@@ -171,3 +171,81 @@ def test_dqn_run_invariants():
         assert 0 < len(df[df["round"] == r]) <= 5
     assert model.cost == 3 * 20
     assert explorer.num_actions == 3 * 20
+
+
+STALL_SEEDS = 200
+
+
+def _jax_init_moves(seeds):
+    """Nonzero masked moves at TF-Bind's STARTS[0] of fresh JAX Q nets, one per seed.
+
+    Each net is initialised as the fused JAX runner does
+    (`flexs_tpu/runtime/dqn_runner.py`: the run's key split, `init` on the
+    second half), and the moves are its `all_action_q` masked by 1 - state.
+    """
+    from flexs_tpu.baselines.explorers.dqn import QNetwork
+    from flexs_tpu.landscapes import tf_binding
+
+    L, A = 8, 4
+    dim = L * A
+    q_module = QNetwork(seq_len=L, alphabet_len=A)
+    tokens = flexs_tpu.alphabet.as_alphabet("TGCA").encode_one(tf_binding.STARTS[0])
+    state = jax.nn.one_hot(jnp.asarray(tokens), A, dtype=jnp.float32).reshape(dim)
+    x = jnp.concatenate([jnp.broadcast_to(state, (dim, dim)), jnp.eye(dim)], axis=1)
+
+    @jax.jit
+    def moves(seed):
+        _, init_key = jax.random.split(jax.random.PRNGKey(seed))
+        params = q_module.init(init_key, jnp.zeros((1, 2 * dim), jnp.float32))
+        return jnp.sum((q_module.apply(params, x).reshape(dim) * (1 - state)) != 0)
+
+    return np.array([int(moves(s)) for s in seeds])
+
+
+def test_fresh_q_net_moves_match_jax_over_seeds():
+    """The share of fresh Q nets with no nonzero move at the start, with at most two,
+    and the mean count: port (CPU generator) and JAX over 200 seeds each.
+
+    Few nonzero moves let the masked walk stall (PERF.md, the north-star DQN
+    row).  The inits draw from different streams, so each statistic is held
+    to three standard errors of the difference of two 200-seed estimates.
+    """
+    from flexs_tpu_torch import dqn_stall
+
+    seeds = range(STALL_SEEDS)
+    port = np.array(dqn_stall.init_moves(seeds, "cpu")["counts"])
+    ref = _jax_init_moves(seeds)
+    n = STALL_SEEDS
+    for name, p, q in (("none", port == 0, ref == 0), ("at most 2", port <= 2, ref <= 2)):
+        a, b = p.mean(), q.mean()
+        se = np.sqrt(a * (1 - a) / n + b * (1 - b) / n)
+        assert abs(a - b) <= 3 * se, (name, a, b, se)
+    se = np.sqrt(port.var(ddof=1) / n + ref.var(ddof=1) / n)
+    assert abs(port.mean() - ref.mean()) <= 3 * se, (port.mean(), ref.mean(), se)
+
+
+def test_dqn_stall_lines_on_the_cpu():
+    """`python -m flexs_tpu_torch.dqn_stall --cpu` at a small budget: its three lines.
+
+    On one device the replay must never part from the run it replays.
+    """
+    import contextlib
+    import io
+    import json
+
+    from flexs_tpu_torch import dqn_stall
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dqn_stall.main(["--cpu"], init_seeds=8, grid_seeds=2, grid_rounds=1,
+                       run=dict(sequences_batch_size=10, model_queries_per_batch=40))
+    init, replay, grid = (json.loads(line) for line in out.getvalue().splitlines())
+    assert [init["part"], replay["part"], grid["part"]] == ["init", "replay", "grid"]
+    assert all(line["card"] == "cpu" for line in (init, replay, grid))
+    counts = init["on_device"]["counts"]
+    assert counts == dqn_stall.init_moves(range(8), "cpu")["counts"] and len(counts) == 8
+    assert all(0 <= c <= 24 for c in counts)
+    assert replay["steps_compared"] == 40 and replay["first_part"] is None, replay
+    assert replay["nonzero_moves_first_40"][0] == counts[0]
+    assert grid["cells"] == 2 and grid["stalled"] == len(grid["stalled_seeds"])
+    assert all(c < dqn_stall.STALL_COST for c in grid["stalled_landscape_costs"])

@@ -55,7 +55,9 @@ def test_port_sources_are_found():
                    "parallel/multihost.py", "utils/checkpointing.py", "utils/profiling.py",
                    "cli.py", "native.py", "bench.py", "bench_sweep.py", "bench_fold.py",
                    "bench_surrogate.py", "run_paper_table.py", "bench_northstar.py",
-                   "aggregate_northstar.py", "tutorial.py"):
+                   "aggregate_northstar.py", "tutorial.py", "bench_scaling.py",
+                   "profile_fused_run.py", "profile_surrogate_sweep.py", "profile_compile.py",
+                   "dqn_stall.py"):
         assert os.path.join("flexs_tpu_torch", *module.split("/")) in names
 
 
@@ -91,7 +93,9 @@ def test_import_leaves_jax_unloaded():
         "flexs_tpu_torch.bench_sweep, flexs_tpu_torch.bench_fold, "
         "flexs_tpu_torch.bench_surrogate, flexs_tpu_torch.run_paper_table, "
         "flexs_tpu_torch.bench_northstar, flexs_tpu_torch.aggregate_northstar, "
-        "flexs_tpu_torch.tutorial; "
+        "flexs_tpu_torch.tutorial, flexs_tpu_torch.bench_scaling, "
+        "flexs_tpu_torch.profile_fused_run, flexs_tpu_torch.profile_surrogate_sweep, "
+        "flexs_tpu_torch.profile_compile, flexs_tpu_torch.dqn_stall; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)"
     )

@@ -166,6 +166,38 @@ def test_item_18_paper_table_and_northstar_names():
     assert got[:len(want)] == want == ["name", "model", "landscape", "start"], got
 
 
+def _dict_keys(script: str, name: str) -> list:
+    """The keys of the dict literal bound to `name` at the top level of scripts/<script>."""
+    for node in _script_tree(script).body:
+        if isinstance(node, ast.Assign) and [t.id for t in node.targets] == [name]:
+            return [ast.literal_eval(k) for k in node.value.keys]
+    raise KeyError(name)
+
+
+def test_item_18_scaling_and_profiler_names():
+    """STEPS and PROFILES are the scripts'; each script's functions have a counterpart."""
+    from flexs_tpu_torch import profile_compile, profile_surrogate_sweep
+
+    assert list(profile_surrogate_sweep.STEPS) == _dict_keys("profile_surrogate_sweep.py", "STEPS")
+    assert list(profile_compile.PROFILES) == _dict_keys("profile_compile.py", "PROFILES")
+    counterparts = {
+        "bench_scaling.py": {"cpu_mesh_checks": "cpu_mesh_checks",
+                             "tpu_grid_scaling": "grid_scaling", "main": "main"},
+        "profile_fused_run.py": {"bench": "bench", "main": "main"},
+        "profile_surrogate_sweep.py": {"_landscape": "_landscape", "_median3": "_median3",
+                                       "_single": "_single", "_sweep": "_sweep",
+                                       **{f"h{i}": f"h{i}" for i in range(8)}},
+        "profile_compile.py": {"_paper_args": "_paper_args",
+                               **{f"profile_{n}": f"profile_{n}"
+                                  for n in _dict_keys("profile_compile.py", "PROFILES")}},
+    }
+    for script, names in counterparts.items():
+        want = {n.name for n in _script_tree(script).body if isinstance(n, ast.FunctionDef)}
+        assert want - {"_measure"} == set(names), (script, want)
+        got = _top_level_functions(script, root="flexs_tpu_torch")
+        assert set(names.values()) <= set(got), (script, sorted(got))
+
+
 def _top_level_functions(module: str, root: str = "flexs_tpu") -> dict:
     """{name: positional parameter names} of the top-level functions of `<root>/<module>`."""
     path = os.path.join(ROOT, root, *module.split("/"))
