@@ -3,10 +3,11 @@
     python -m flexs_tpu_torch.profile_main_path
 
 Runs DeviceAdaleadNAM on RNABinding L100_RNA1 (100 proposals x 2000 model
-queries per round, NAM at signal strength 0.9, seed 0) four times: once
+queries per round, NAM at signal strength 0.9, seed 0) five times: once
 to warm up (it builds and loads the kernel), once timed without the
-profiler, once under `torch.profiler` for the kernels, and once more
-under it with a span around each layer of the run.  Then it runs one
+profiler, once under `torch.profiler` for the kernels, once more under it
+with a span around each kernel-side call of the run, and once without it
+with the program's own spans on.  Then it runs one
 40-cell chunk of the TF-Bind-8 robustness sweep (8 landscapes x 5 signal
 strengths, the same per-cell configuration, as `chip_smoke.py` runs it):
 once to warm up at one round, once timed, and once more with the profiler
@@ -21,11 +22,13 @@ wall, the duplex kernel's launches and device time, the top kernels by
 device time, each span's calls and host seconds (a span's time includes
 the spans nested in it; the spans slow the run, so compare spans with each
 other and with the spanned wall), and for the sweep chunk its host syncs
-and the calls and host seconds of its per-cell random draws.  The spans
-are added here, for that run only, by replacing each attribute in SPANS;
-the package itself carries no instrumentation.  The script fails if a
-span's attribute is gone or the run never called it, so a renamed method
-cannot drop out of the table.
+and the calls and host seconds of its per-cell random draws.  The rounds,
+NAM queries and mutant searches are the program's own spans
+(`utils.profiling.span`), read from its span table by name with their
+self time; the calls into `packed_hamming` and `cuda_duplex`, which carry
+no program span, are spanned here, for that run only, by replacing each
+attribute in SPANS.  The script fails if a span's attribute is gone or the
+run never called it, so a renamed method cannot drop out of the table.
 """
 import contextlib
 import functools
@@ -42,6 +45,7 @@ from flexs_tpu_torch.landscapes import rna, tf_binding
 from flexs_tpu_torch.ops import cuda_duplex, packed_hamming
 from flexs_tpu_torch.parallel import run_robustness_sweep
 from flexs_tpu_torch.runtime import jit_runner
+from flexs_tpu_torch.utils import profiling
 
 ROUNDS = 10  # the main path's full run, as chip_smoke.py drives it
 TOP_KERNELS = 12
@@ -49,12 +53,12 @@ SWEEP_CHUNK_LANDSCAPES = 8  # x 5 signal strengths: one chunk of chip_smoke.py's
 PROFILED_ROUNDS = 2  # the chunk's last rounds, profiled
 DRAW_OPS = ("aten::exponential_", "aten::random_", "aten::uniform_", "aten::randperm")
 
+# The program's spans reported (`utils.profiling.span` names).
+PROGRAM_SPANS = ("flexs.round", "flexs.nam_query", "flexs.mutants")
+
 # Span label -> (owner, attribute).  Callers look these up on the owner at
 # call time, so replacing the attribute puts the span around every call.
 SPANS = {
-    "round": (jit_runner._Run, "round"),
-    "round.nam_query": (jit_runner._Run, "nam_query"),
-    "round.novel_mutants": (jit_runner._Run, "novel_mutants"),
     "packed_hamming.pack_tokens": (packed_hamming, "pack_tokens"),
     "packed_hamming.packed_hamming_matrix": (packed_hamming, "packed_hamming_matrix"),
     "duplex.duplex_energies": (cuda_duplex, "duplex_energies"),
@@ -85,6 +89,18 @@ def spans_installed(wrap=_traced):
     finally:
         for label, (owner, attr) in SPANS.items():
             setattr(owner, attr, originals[label])
+
+
+def program_spans(run) -> dict:
+    """Calls, host and self seconds of each program span over `run()`, by name, untraced."""
+    profiling.reset_spans()
+    profiling.enable_spans(True)
+    try:
+        run()
+    finally:
+        profiling.enable_spans(False)
+    return {name: {"calls": t["calls"], "host_s": t["total_s"], "self_s": t["self_s"]}
+            for name, t in profiling.span_totals().items()}
 
 
 def _timed_run(runner) -> float:
@@ -229,7 +245,9 @@ def main() -> int:
         for e in prof.key_averages()
         if e.key in SPANS
     }
+    program = program_spans(lambda: _timed_run(runner))
     silent = [label for label in SPANS if spans.get(label, {}).get("calls", 0) == 0]
+    silent += [name for name in PROGRAM_SPANS if name not in program]
     if silent:
         raise SystemExit(f"spans that recorded no calls: {silent}")
 
@@ -247,6 +265,7 @@ def main() -> int:
         "duplex_launches": duplex_launches,
         "duplex_device_s": sum(e.self_device_time_total for e in duplex) / 1e6,
         "spans": spans,
+        "program_spans": program,
         "top_kernels": top_kernels(kernels),
         "tf_binding_sweep_chunk": sweep_chunk_profile(),
     }))

@@ -62,6 +62,7 @@ from flexs_tpu_torch.runtime.jit_runner import (
     run_cells,
     run_counts,
 )
+from flexs_tpu_torch.utils.profiling import span
 from flexs_tpu_torch.utils.vae import DROPOUT_KEEP, VAETrainer
 
 MAX_SAMPLE_TRIES = 200  # PWM batches a cycle (reference VAE_utils.py:170)
@@ -195,13 +196,14 @@ class _CbASRun(CellRun):
         C, L, A = self.C, self.L, self.cfg.alphabet_size
 
         def draw(gens, _rejections):
-            (pick,) = self.draw_buffers(gens, (C, count), torch.long)
-            u, rand = self.draw_buffers(gens, (C, count, L), torch.float32, torch.long)
-            for c, g in gens:
-                if source is None:
-                    pick[c].random_(0, max(n_buf_h[c], 1), generator=g)
-                u[c].uniform_(0, 1, generator=g)
-                rand[c].random_(0, A, generator=g)
+            with span("flexs.draw"):
+                (pick,) = self.draw_buffers(gens, (C, count), torch.long)
+                u, rand = self.draw_buffers(gens, (C, count, L), torch.float32, torch.long)
+                for c, g in gens:
+                    if source is None:
+                        pick[c].random_(0, max(n_buf_h[c], 1), generator=g)
+                    u[c].uniform_(0, 1, generator=g)
+                    rand[c].random_(0, A, generator=g)
             toks = (buf[self.cells, pick] if source is None
                     else source[:, None, :].expand(C, count, L))
             return torch.where(u < rate, rand, toks)
@@ -298,16 +300,20 @@ class _CbASRun(CellRun):
             # :153-187 via utils/vae.py), by Gumbel-max.
             pwm = torch.empty((C, L, A), device=dev)
             with torch.no_grad():
-                for c, g in self.live_gens(every, draws=1):
-                    z = torch.randn((1, self.vae_cfg.latent_dim), generator=g, device=dev)
+                gens = self.live_gens(every, draws=1)
+                with span("flexs.draw"):
+                    zs = [(c, torch.randn((1, self.vae_cfg.latent_dim), generator=g, device=dev))
+                          for c, g in gens]
+                for c, z in zs:
                     pwm[c] = self.trainers[c].module.decode(z)[0].reshape(L, A)
 
             def draw(gens, rejections):
                 temp = 0.001 * torch.pow(1.3, rejections.float())
                 logits = pwm / temp.clamp(min=1e-8)[:, None, None]
-                expo = torch.ones((C, cbs, L, A), device=dev)
-                for c, g in gens:
-                    expo[c].exponential_(1.0, generator=g)
+                with span("flexs.draw"):
+                    expo = torch.ones((C, cbs, L, A), device=dev)
+                    for c, g in gens:
+                        expo[c].exponential_(1.0, generator=g)
                 return (logits[:, None] - torch.log(expo)).argmax(dim=3)
 
             prop = torch.zeros((C, cbs + 1, L), dtype=torch.long, device=dev)

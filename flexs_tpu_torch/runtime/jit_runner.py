@@ -60,6 +60,15 @@ the RL runners (`dqn_runner`, `ppo_runner`, `dyna_ppo_runner`,
 `AsyncCellRun`, whose queries and measurements need no host sync, and
 keep their recorded pools and density caches in `Pool`s.  `DeviceRunner`
 is their shared (df, metadata) and run-log wrapper.
+
+The shared steps carry the program's spans (`utils.profiling.span`, off
+unless switched on): `flexs.round` (each round of `run_cells`),
+`flexs.nam_query` (the scoring and cache insertion of a query),
+`flexs.mutants` and `flexs.recombine` (Adalead's proposals), `flexs.draw`
+(each per-cell generator loop with its buffers), `flexs.dist` (distances
+to packed rows), `flexs.oracle` (each call of the landscape's fitness),
+`flexs.top_b`, `flexs.measure`, and `flexs.fetch` (the host blocked in a
+sync).
 """
 import time
 import warnings
@@ -75,7 +84,8 @@ from flexs_tpu_torch.device import resolve_device
 from flexs_tpu_torch.explorer import write_run_log
 from flexs_tpu_torch.ops import packed_hamming
 from flexs_tpu_torch.runtime import surrogate as surrogate_lib
-from flexs_tpu_torch.utils import sequence_utils
+from flexs_tpu_torch.utils import profiling, sequence_utils
+from flexs_tpu_torch.utils.profiling import span
 
 
 class AdaleadConfig(NamedTuple):
@@ -116,15 +126,17 @@ class RunResult(NamedTuple):
     start_truth: torch.Tensor  # f32[]
 
 
-# Host syncs, per-cell random draw calls and runs of `run_adalead_nam_cells`
-# since the last `reset_run_counts()`; chip_smoke.py and profile_main_path
-# read them.
+# Host syncs, per-cell random draw calls and runs of `run_cells` since the
+# last `reset_run_counts()`; chip_smoke.py, profile_main_path and the
+# benchmark read them.
 run_counts = {"runs": 0, "syncs": 0, "draw_calls": 0}
 
 
 def reset_run_counts() -> None:
+    """Zero `run_counts` and empty the program's span table."""
     for key in run_counts:
         run_counts[key] = 0
+    profiling.reset_spans()
 
 
 def cell_axis_oracle(fitness_fn: Callable) -> Callable:
@@ -206,7 +218,8 @@ class CellRun:
         measured_cap = 1 + R * B + 1  # +1 trash row
 
         self.start = start = start_tokens.long()
-        self.start_truth = fitness_fn(fitness_params, start[:, None])[:, 0]
+        with span("flexs.oracle"):
+            self.start_truth = fitness_fn(fitness_params, start[:, None])[:, 0]
 
         self.measured_tokens = torch.zeros((C, measured_cap, L), dtype=torch.long, device=dev)
         self.measured_truth = torch.full((C, measured_cap), -torch.inf, device=dev)
@@ -239,7 +252,8 @@ class CellRun:
     def fetch(self, values):
         """The step's one device->host sync: `values` as nested lists."""
         run_counts["syncs"] += 1
-        return values.tolist()
+        with span("flexs.fetch"):
+            return values.tolist()
 
     def live_gens(self, live, draws: int):
         """(cell, generator) of each live cell, counting `draws` calls for each."""
@@ -262,11 +276,12 @@ class CellRun:
         any distance, so min and first-index argmin see only filled rows.
         """
         bound = max(1, min(bound, rows_pk.shape[1]))
-        d = packed_hamming.packed_hamming_matrix(
-            packed, rows_pk[:, :bound], self.bits, self.per_word
-        )
-        filled = torch.arange(bound, device=self.dev) < n_rows[:, None]
-        return torch.where(filled[:, None, :], d, self.L + 1)
+        with span("flexs.dist"):
+            d = packed_hamming.packed_hamming_matrix(
+                packed, rows_pk[:, :bound], self.bits, self.per_word
+            )
+            filled = torch.arange(bound, device=self.dev) < n_rows[:, None]
+            return torch.where(filled[:, None, :], d, self.L + 1)
 
     def cache_bound(self) -> int:
         """The host's bound of the cache fills: the largest fill."""
@@ -292,7 +307,8 @@ class CellRun:
         model cost), and uncached rows are inserted with it.  `charge`
         (default `mask`) marks the rows that cost a model query.
         """
-        values, pos, insert = self.score_into_cache(tokens, mask, live)
+        with span("flexs.nam_query"):
+            values, pos, insert = self.score_into_cache(tokens, mask, live)
         charged = mask if charge is None else charge
         sums = torch.stack([charged.sum(dim=1), insert.sum(dim=1)])
         self.counts_t += sums
@@ -311,9 +327,10 @@ class CellRun:
 
     def random_rows(self, gens, shape):
         """int64 `shape`: uniform cache rows below each drawing cell's fill, its NAM noise rows."""
-        (idx,) = self.draw_buffers(gens, shape, torch.long)
-        for c, g in gens:
-            idx[c].random_(0, self.n_cache[c], generator=g)
+        with span("flexs.draw"):
+            (idx,) = self.draw_buffers(gens, shape, torch.long)
+            for c, g in gens:
+                idx[c].random_(0, self.n_cache[c], generator=g)
         return idx
 
     def score_into_cache(self, tokens, mask, live, dedup: bool = False):
@@ -335,15 +352,18 @@ class CellRun:
         if spec is not None:
             values = signal = surrogate_lib.predict(spec, self.cfg.alphabet_size, self.surr, tokens)
         elif self.cfg.perfect_model:
-            signal = self.fitness_fn(self.fitness_params, tokens)
+            with span("flexs.oracle"):
+                signal = self.fitness_fn(self.fitness_params, tokens)
             values = torch.where(cached, cached_vals, signal)
         else:
-            signal = self.fitness_fn(self.fitness_params, tokens)
+            with span("flexs.oracle"):
+                signal = self.fitness_fn(self.fitness_params, tokens)
             neighbor_truth = self.cache_truth.gather(1, nearest)
             gens = self.live_gens(live, draws=2)
-            (expo,) = self.draw_buffers(gens, (C, m), torch.float32)
-            for c, g in gens:
-                expo[c].exponential_(1.0, generator=g)
+            with span("flexs.draw"):
+                (expo,) = self.draw_buffers(gens, (C, m), torch.float32)
+                for c, g in gens:
+                    expo[c].exponential_(1.0, generator=g)
             rand_idx = self.random_rows(gens, (C, m))
             noise = torch.where(
                 neighbor_truth >= 0, expo * neighbor_truth, self.cache_vals.gather(1, rand_idx)
@@ -386,13 +406,14 @@ class CellRun:
         orders them.
         """
         B = self.cfg.sequences_batch_size
-        masked_preds = torch.where(
-            torch.arange(gen_preds.shape[1], device=self.dev) < n_gen[:, None], gen_preds,
-            -torch.inf,
-        )
-        ranked, order = torch.sort(masked_preds, dim=1, descending=True, stable=True)
-        top_vals, top_idx = ranked[:, :B], order[:, :B]
-        return gen_tokens[self.cells, top_idx], top_vals, top_idx, torch.isfinite(top_vals)
+        with span("flexs.top_b"):
+            masked_preds = torch.where(
+                torch.arange(gen_preds.shape[1], device=self.dev) < n_gen[:, None], gen_preds,
+                -torch.inf,
+            )
+            ranked, order = torch.sort(masked_preds, dim=1, descending=True, stable=True)
+            top_vals, top_idx = ranked[:, :B], order[:, :B]
+            return gen_tokens[self.cells, top_idx], top_vals, top_idx, torch.isfinite(top_vals)
 
     def measure(self, proposals, top_vals, valid, slots=None, truth_to_cache=False):
         """Measure the valid proposals, append them to the measured set; the round's outputs.
@@ -402,15 +423,17 @@ class CellRun:
         `truth_to_cache`.  Invalid rows write to the trash row, so no slot
         is written twice.
         """
-        truth, n_valid = self.store_measurement(proposals, valid, slots, truth_to_cache)
-        for c, n in enumerate(self.fetch(n_valid)):
-            self.landscape_cost[c] += n
-            self.n_measured_h[c] += n
+        with span("flexs.measure"):
+            truth, n_valid = self.store_measurement(proposals, valid, slots, truth_to_cache)
+            for c, n in enumerate(self.fetch(n_valid)):
+                self.landscape_cost[c] += n
+                self.n_measured_h[c] += n
         return proposals, top_vals, truth, valid, list(self.model_cost), list(self.landscape_cost)
 
     def store_measurement(self, proposals, valid, slots=None, truth_to_cache=False):
         """`measure`'s device work: (truth f32[C, B], valid count int64[C]), nothing fetched."""
-        truth = self.fitness_fn(self.fitness_params, proposals)
+        with span("flexs.oracle"):
+            truth = self.fitness_fn(self.fitness_params, proposals)
         truth = torch.where(valid, truth, -torch.inf)
         n_valid = valid.sum(dim=1)
 
@@ -463,9 +486,10 @@ class AsyncCellRun(CellRun):
 
     def random_rows(self, gens, shape):
         """`CellRun.random_rows` with the fill on the device: floor(u * fill), u uniform."""
-        (u,) = self.draw_buffers(gens, shape, torch.float32)
-        for c, g in gens:
-            u[c].uniform_(0, 1, generator=g)
+        with span("flexs.draw"):
+            (u,) = self.draw_buffers(gens, shape, torch.float32)
+            for c, g in gens:
+                u[c].uniform_(0, 1, generator=g)
         fill = self.n_cache_t[:, None]
         return torch.minimum((u * fill).long(), fill - 1)
 
@@ -476,7 +500,8 @@ class AsyncCellRun(CellRun):
         above; `live` (host bools) marks the cells that draw.  A masked-out
         row costs nothing and inserts nothing.
         """
-        values, pos, insert = self.score_into_cache(tokens, mask, live, dedup=True)
+        with span("flexs.nam_query"):
+            values, pos, insert = self.score_into_cache(tokens, mask, live, dedup=True)
         n_insert = insert.sum(dim=1)
         self.counts_t += torch.stack([mask.sum(dim=1), n_insert])
         if self.nam_corrupts:
@@ -487,7 +512,8 @@ class AsyncCellRun(CellRun):
     def oracle(self, tokens, mask):
         """True fitness f32[C, m] of tokens, charging the masked rows to the landscape."""
         self.landscape_cost_t += mask.sum(dim=1)
-        return self.fitness_fn(self.fitness_params, tokens)
+        with span("flexs.oracle"):
+            return self.fitness_fn(self.fitness_params, tokens)
 
     def read_counts(self, *extra):
         """One host sync: the costs and cache fills into the host lists, and `extra` int64[C] tensors."""
@@ -514,8 +540,9 @@ class AsyncCellRun(CellRun):
 
     def measure_queued(self, proposals, top_vals, valid, slots=None):
         """`measure` without the sync: the round's outputs with device costs."""
-        truth, n_valid = self.store_measurement(proposals, valid, slots)
-        self.landscape_cost_t += n_valid
+        with span("flexs.measure"):
+            truth, n_valid = self.store_measurement(proposals, valid, slots)
+            self.landscape_cost_t += n_valid
         self.measured_bound += proposals.shape[1]
         return (proposals, top_vals, truth, valid, self.model_cost_t.clone(),
                 self.landscape_cost_t.clone())
@@ -580,7 +607,10 @@ def _stack_costs(per_round, dev) -> torch.Tensor:
 def run_cells(run: CellRun) -> RunResult:
     """Drive `run` through its rounds: the stacked `RunResult` with a leading cell axis."""
     run_counts["runs"] += 1
-    outs = [run.round() for _ in range(run.cfg.rounds)]
+    outs = []
+    for _ in range(run.cfg.rounds):
+        with span("flexs.round"):
+            outs.append(run.round())
     tokens, preds, truth, valid, model_cost, landscape_cost = zip(*outs)
     dev = run.dev
     return RunResult(
@@ -628,10 +658,11 @@ class _Run(CellRun):
             if not any(live):
                 break
             gens = self.live_gens(live, draws=2)
-            draw, rand = self.draw_buffers(gens, tokens.shape, torch.float32, tokens.dtype)
-            for c, g in gens:
-                draw[c].uniform_(0, 1, generator=g)
-                rand[c].random_(0, cfg.alphabet_size, generator=g)
+            with span("flexs.draw"):
+                draw, rand = self.draw_buffers(gens, tokens.shape, torch.float32, tokens.dtype)
+                for c, g in gens:
+                    draw[c].uniform_(0, 1, generator=g)
+                    rand[c].random_(0, cfg.alphabet_size, generator=g)
             cand = torch.where(draw < mu_per_res, rand, tokens)
 
             cand_pk = self.pack(cand)
@@ -652,14 +683,16 @@ class _Run(CellRun):
         """One recombination pass over each live cell's rows (reference adalead.py:79-92)."""
         out = tokens.clone()
         pairs = tokens.shape[1] // 2
-        for c, g in self.live_gens(live, draws=2):
-            perm = torch.randperm(tokens.shape[1], generator=g, device=self.dev)
-            shuffled = tokens[c][perm]
-            out[c] = shuffled
-            out[c, 0 : 2 * pairs : 2], out[c, 1 : 2 * pairs : 2] = sequence_utils.recombine(
-                g, shuffled[0 : 2 * pairs : 2], shuffled[1 : 2 * pairs : 2],
-                self.cfg.recomb_rate,
-            )
+        gens = self.live_gens(live, draws=2)
+        with span("flexs.draw"):
+            for c, g in gens:
+                perm = torch.randperm(tokens.shape[1], generator=g, device=self.dev)
+                shuffled = tokens[c][perm]
+                out[c] = shuffled
+                out[c, 0 : 2 * pairs : 2], out[c, 1 : 2 * pairs : 2] = sequence_utils.recombine(
+                    g, shuffled[0 : 2 * pairs : 2], shuffled[1 : 2 * pairs : 2],
+                    self.cfg.recomb_rate,
+                )
         return out
 
     def round(self):
@@ -698,7 +731,8 @@ class _Run(CellRun):
             # Recombination compounds across budget passes (reference
             # adalead.py:117-118 reassigns parents before each pass).
             for _ in range(cfg.rho):
-                parents = self.recombine(parents, in_pass)
+                with span("flexs.recombine"):
+                    parents = self.recombine(parents, in_pass)
             root_vals, _ = self.nam_query(parents, pass_rows, in_pass)
 
             alive, tokens = pass_rows, parents
@@ -716,7 +750,8 @@ class _Run(CellRun):
                         self.model_cost_t - round_start_t + n_alive_t < budget
                     )
                     alive = alive & roll_t[:, None]
-                children, found = self.novel_mutants(tokens, alive)
+                with span("flexs.mutants"):
+                    children, found = self.novel_mutants(tokens, alive)
                 vals, pos = self.nam_query(children, found, roll)
                 _masked_append(
                     gen_tokens, children, n_gen, found,

@@ -181,7 +181,9 @@ def test_golden_band_l14_rna1(landscape, signal_strength):
 
 def test_profile_spans_wrap_the_run(landscape):
     """Every span of the profile script resolves and sees calls in a run; on
-    the CPU the kernel-only span (launch_plan) is the only silent one."""
+    the CPU the kernel-only span (launch_plan) is the only silent one.  The
+    program's own spans it reports record calls, each self time within its
+    host time."""
     from flexs_tpu_torch import profile_main_path
 
     calls = dict.fromkeys(profile_main_path.SPANS, 0)
@@ -198,6 +200,10 @@ def test_profile_spans_wrap_the_run(landscape):
         _run(landscape, rounds=1)
     assert {label: getattr(*where) for label, where in profile_main_path.SPANS.items()} == originals
     assert [label for label, n in calls.items() if n == 0] == ["duplex.launch_plan"]
+    program = profile_main_path.program_spans(lambda: _run(landscape, rounds=1))
+    for name in profile_main_path.PROGRAM_SPANS:
+        assert program[name]["calls"] > 0, name
+        assert 0 <= program[name]["self_s"] <= program[name]["host_s"], name
 
 
 def test_profile_round_hook_sees_every_round(landscape):
