@@ -34,7 +34,12 @@ Phases (any failed check raises, and the script exits nonzero):
         cells: every cell's max >= its start and model cost > 0; the first
         and last cells equal a standalone DeviceAdaleadNAM exactly; warm
         wall, sequences scored/s, peak memory, host syncs and draw calls
-        per chunk;
+        per chunk; the sweep must launch the packed-Hamming kernel
+        (csrc/packed_hamming.cu); then one JSON line times that kernel with
+        CUDA events at 40 cells x 100 queries x N = 2,000, 11,000 and 22,000
+        rows (1 word, 2 bits), at K = 7 words and at a GFP run's shape (one
+        cell, K = 40 words of 5 bits), beside its bound and the plain
+        version on the card, each case equal to the plain version;
      e. the efficiency and adaptivity sweeps at bench.py's grid on 4
         landscapes: wall, peak memory and chunk size of each;
   6. the trained-surrogate path and the generic landscape sweep (a-d
@@ -293,6 +298,12 @@ HOST_LAUNCHES, HOST_TOP = 112, 0.619458
 SWEEP_LANDSCAPES, SWEEP_CHUNK = 16, 40
 SWEEP_SIGNAL_STRENGTHS = (0.0, 0.5, 0.75, 0.9, 1.0)
 EVAL_LANDSCAPES, EVAL_CHUNK = 4, 8
+# The packed-Hamming kernel's timed cases (cells, queries, rows, words,
+# bits): a 40-cell chunk's lookups at the sweep's small, mean and largest
+# cache fills, the RNA runs' 7 words a row, and a GFP run's lookups (one
+# run, 40 words of 5-bit symbols, a 2,000-row cache).
+HAMMING_CASES = ((40, 100, 2000, 1, 2), (40, 100, 11000, 1, 2), (40, 100, 22000, 1, 2),
+                 (40, 100, 11000, 7, 2), (1, 100, 2000, 40, 5))
 EFFICIENCY_BUDGETS = ((100, 500), (100, 5000), (1000, 5000), (1000, 10000))
 # Phase 6: the card's oracles against the CPU's, and the surrogate sweep's
 # quality floor, beside the reference's mean max fitness over its
@@ -630,6 +641,7 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
     from flexs_tpu_torch.parallel import (
         run_adaptivity_sweep, run_efficiency_sweep, run_robustness_sweep,
     )
+    from flexs_tpu_torch.ops import packed_hamming
     from flexs_tpu_torch.runtime import jit_runner
 
     names = list(tf_binding.registry())
@@ -700,9 +712,12 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
     run_robustness_sweep(**{**grid, "landscape_names": names[:SWEEP_CHUNK // 5]}, rounds=1)
     torch.cuda.reset_peak_memory_stats()
     jit_runner.reset_run_counts()
+    hamming_before = packed_hamming.launches
     sweep, sweep_wall = timed(lambda: run_robustness_sweep(
         **grid, rounds=10, chunk_size=SWEEP_CHUNK))
     counts = dict(jit_runner.run_counts)
+    hamming_launches = packed_hamming.launches - hamming_before
+    assert hamming_launches > 0, "the sweep never launched the packed-Hamming kernel"
     sweep_peak = torch.cuda.max_memory_allocated()
     assert len(sweep) == SWEEP_LANDSCAPES * len(SWEEP_SIGNAL_STRENGTHS)
     assert (sweep["max_fitness"] >= sweep["start_fitness"]).all()
@@ -734,6 +749,7 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
         "peak_memory_bytes": sweep_peak,
         "syncs_per_chunk": counts["syncs"] / chunks,
         "draw_calls_per_chunk": counts["draw_calls"] / chunks,
+        "hamming_launches_per_chunk": hamming_launches / chunks,
         "first_and_last_cell_alone": singles,
         "chunk_wall_over_fused_warm_wall": sweep_wall / chunks / fused_walls[1],
     }
@@ -742,9 +758,12 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
           f"chunk, {sweep_reading['chunk_wall_over_fused_warm_wall']} x the warm fused run), "
           f"{sweep_reading['sequences_scored_per_s']} sequences scored/s (model + landscape "
           f"cost over wall), mean max_fitness {sweep_reading['mean_max_fitness']}, peak memory "
-          f"{sweep_peak} bytes, per chunk {sweep_reading['syncs_per_chunk']} host syncs and "
-          f"{sweep_reading['draw_calls_per_chunk']} draw calls; first and last cells alone "
-          f"{singles}; both equal to the standalone runner [{card}]")
+          f"{sweep_peak} bytes, per chunk {sweep_reading['syncs_per_chunk']} host syncs, "
+          f"{sweep_reading['draw_calls_per_chunk']} draw calls and "
+          f"{sweep_reading['hamming_launches_per_chunk']} packed-Hamming launches; first and "
+          f"last cells alone {singles}; both equal to the standalone runner [{card}]")
+    hamming = hamming_kernel_reading(card)
+    print(json.dumps(hamming))
 
     # e. The evaluator sweeps at bench.py's grid.
     evals = {}
@@ -764,7 +783,43 @@ def tf_binding_phases(flexs, cuda_duplex, card: str) -> dict:
         print(f"tf-bind {label} sweep: {evals[label]} [{card}]")
     no_duplex_launches(cuda_duplex, "e")
     return {"fused_walls_s": fused_walls, "fused_top": fused_top, "host_wall_s": host_wall,
-            "host_top": host_top, "robustness_sweep": sweep_reading, **evals}
+            "host_top": host_top, "robustness_sweep": sweep_reading,
+            "packed_hamming": hamming, **evals}
+
+
+def hamming_kernel_reading(card: str) -> dict:
+    """The packed-Hamming kernel at the sweep's shapes: CUDA-event medians of
+    back-to-back launches, its bound and the plain version's time, each case
+    first checked equal to the plain version.
+
+    The bound is the larger of the int32 output (plus the packed inputs) at
+    3.35 TB/s and the popcounts at 16 a clock on 132 SMs at 1,980 MHz.
+    """
+    from flexs_tpu_torch.ops import packed_hamming
+    from flexs_tpu_torch.profile_duplex_rowcost import HBM_BYTES_PER_S, time_ms
+
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for cells, m, n, words, bits in HAMMING_CASES:
+        q = torch.as_tensor(rng.integers(0, 2**32, (cells, m, words)), device="cuda")
+        c = torch.as_tensor(rng.integers(0, 2**32, (cells, n, words)), device="cuda")
+        fills = torch.as_tensor(rng.integers(n // 2, n + 1, cells), device="cuda")
+        args = (q, c, fills, n, bits, 32 // bits, 9)
+        out, launch = packed_hamming.launcher(*args)
+        launch()
+        check_equal(out, packed_hamming.masked_hamming_matrix_plain(*args),
+                    f"packed_hamming C={cells} m={m} N={n} K={words} bits={bits}")
+        kernel_ms = time_ms(launch, reps=7, inner=20)
+        plain_ms = time_ms(lambda: packed_hamming.masked_hamming_matrix_plain(*args), reps=3,
+                           inner=2)
+        bytes_ = cells * m * n * 4 + (cells * (m + n) * words + cells) * 8
+        bound_ms = 1e3 * max(bytes_ / HBM_BYTES_PER_S,
+                             cells * m * n * words / (16 * 132 * 1.98e9))
+        cases.append({"cells": cells, "queries": m, "rows": n, "words": words, "bits": bits,
+                      "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                      "pct_of_bound": 100 * bound_ms / kernel_ms, "plain_ms": plain_ms})
+    return {"kernel": "packed_hamming", "card": card, "sm_clock_power": clock_line(),
+            "cases": cases}
 
 
 @contextlib.contextmanager

@@ -123,14 +123,34 @@ def _sources(variant: str) -> list:
     return [FIRST_SOURCE] if library == FIRST else [ROWCOST_SOURCE, SOURCE]
 
 
+def tagged_path(name: str, sources, flags) -> str:
+    """Where a library built from `sources` with `flags` goes: BUILD_DIR, tagged by both."""
+    src = b"".join(open(path, "rb").read() for path in sources)
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def compile_library(lib_path: str, source: str, flags) -> Tuple[str, str]:
+    """Compile `source` with nvcc and `flags` into `lib_path` unless it exists.
+
+    Returns (path, compiler log); the log is empty when the library was there.
+    """
+    if os.path.exists(lib_path):
+        return lib_path, ""
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, proc.stdout + proc.stderr
+
+
 def library_path(variant: str = MAIN) -> str:
     """Where a build's library goes: tagged by its sources and flags."""
     library = _library(variant)
-    flags = nvcc_flags(library)
-    src = b"".join(open(path, "rb").read() for path in _sources(library))
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     name = MAIN if library == MAIN else f"duplex_rowcost_{library.replace('-', '_')}"
-    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    return tagged_path(name, _sources(library), nvcc_flags(library))
 
 
 def build(variant: str = MAIN) -> Tuple[str, str]:
@@ -139,20 +159,8 @@ def build(variant: str = MAIN) -> Tuple[str, str]:
     `variant` is MAIN (the main path's kernel) or one of ROWCOST_BUILDS
     ("baseline" builds MAIN).
     """
-    lib_path = library_path(variant)
-    if os.path.exists(lib_path):
-        return lib_path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    source = _sources(variant)[0]
-    proc = subprocess.run(
-        [_nvcc(), *nvcc_flags(_library(variant)), "-o", tmp, source],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    return compile_library(library_path(variant), _sources(variant)[0],
+                           nvcc_flags(_library(variant)))
 
 
 def _load(variant: str = MAIN):

@@ -60,7 +60,7 @@ PROGRAM_SPANS = ("flexs.round", "flexs.nam_query", "flexs.mutants")
 # call time, so replacing the attribute puts the span around every call.
 SPANS = {
     "packed_hamming.pack_tokens": (packed_hamming, "pack_tokens"),
-    "packed_hamming.packed_hamming_matrix": (packed_hamming, "packed_hamming_matrix"),
+    "packed_hamming.masked_hamming_matrix": (packed_hamming, "masked_hamming_matrix"),
     "duplex.duplex_energies": (cuda_duplex, "duplex_energies"),
     "duplex.launch_plan": (cuda_duplex, "launch_plan"),
 }

@@ -60,9 +60,9 @@ class _CMAESRun(CellRun):
 
     def first_match(self, packed, rows_pk, n_rows, values):
         """(in rows, value) per packed row: its first equal row among the first n_rows."""
-        d = packed_hamming.packed_hamming_matrix(packed, rows_pk, self.bits, self.per_word)
-        filled = torch.arange(rows_pk.shape[1], device=self.dev) < n_rows[:, None]
-        d = torch.where(filled[:, None, :], d, self.L + 1)
+        d = packed_hamming.masked_hamming_matrix(
+            packed, rows_pk, n_rows, rows_pk.shape[1], self.bits, self.per_word, self.L + 1
+        )
         return d.amin(dim=2) == 0, values.gather(1, d.argmin(dim=2))
 
     def round(self):

@@ -105,11 +105,10 @@ class _GPRBORun(CellRun):
         C, n = tokens.shape[:2]
         signal = self.fitness_fn(self.fitness_params, tokens)
         n_max = max(self.n_measured_h)
-        d = packed_hamming.packed_hamming_matrix(
-            self.pack(tokens), self.m_pk[:, :n_max], self.bits, self.per_word
+        d = packed_hamming.masked_hamming_matrix(
+            self.pack(tokens), self.m_pk, self.n_measured, n_max, self.bits, self.per_word,
+            self.L + 1,
         )
-        filled = torch.arange(n_max, device=self.dev) < self.n_measured[:, None]
-        d = torch.where(filled[:, None, :], d, self.L + 1)
         min_dist, nearest = d.amin(dim=2), d.argmin(dim=2)
         expo, rand_idx = self.draw_buffers(live_gens, (C, n), torch.float32, torch.long)
         for c, g in live_gens:

@@ -277,11 +277,9 @@ class CellRun:
         """
         bound = max(1, min(bound, rows_pk.shape[1]))
         with span("flexs.dist"):
-            d = packed_hamming.packed_hamming_matrix(
-                packed, rows_pk[:, :bound], self.bits, self.per_word
+            return packed_hamming.masked_hamming_matrix(
+                packed, rows_pk, n_rows, bound, self.bits, self.per_word, self.L + 1
             )
-            filled = torch.arange(bound, device=self.dev) < n_rows[:, None]
-            return torch.where(filled[:, None, :], d, self.L + 1)
 
     def cache_bound(self) -> int:
         """The host's bound of the cache fills: the largest fill."""

@@ -525,3 +525,130 @@ def test_dynappo_density_on_card_equals_cpu(card):
         env._density.update(seqs, fitness)
         densities.append(env._density.densities(queries))
     assert np.array_equal(densities[0], densities[1]) and (densities[0] > 0).all()
+
+
+def _hamming_inputs(rng, lead, m, n_cap, words, dev):
+    q = torch.as_tensor(rng.integers(0, 2**32, lead + (m, words)), device=dev)
+    c = torch.as_tensor(rng.integers(0, 2**32, lead + (n_cap, words)), device=dev)
+    c[..., 2, :] = q[..., 0, :]  # an exact match
+    return q, c
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 5])
+@pytest.mark.parametrize("words", [1, 7, 40])
+@pytest.mark.parametrize("cells", [None, 3])
+def test_hamming_kernel_equals_plain(card, bits, words, cells):
+    """The masked packed-Hamming kernel against its plain version, as integers:
+    fills of 0, partial and full, bound 1 and bounds that are no multiple of
+    a thread's 4 rows, and the rows as a slice of a wider buffer."""
+    from flexs_tpu_torch.ops import packed_hamming
+
+    rng = np.random.default_rng(bits * 100 + words)
+    per_word = 32 // bits
+    lead = () if cells is None else (cells,)
+    q, wide = _hamming_inputs(rng, lead, 74, 1030, words, card)
+    q, c = q[..., ::2, :], wide[..., :1027, :]  # not contiguous
+    fills = ([None, torch.tensor(0), torch.tensor(513), torch.tensor(1027)] if cells is None
+             else [None, torch.tensor([0, 513, 1027]), torch.tensor([1027, 1027, 1027])])
+    for bound in (1, 2, 511, 1027):
+        for n_rows in fills:
+            n_rows = None if n_rows is None else n_rows.to(card)
+            before = packed_hamming.launches
+            got = packed_hamming.masked_hamming_matrix(q, c, n_rows, bound, bits, per_word, 999)
+            assert packed_hamming.launches == before + 1
+            want = packed_hamming.masked_hamming_matrix_plain(q, c, n_rows, bound, bits,
+                                                              per_word, 999)
+            torch.cuda.synchronize()
+            assert got.shape == lead + (37, bound) and got.dtype == torch.int32
+            assert torch.equal(got, want), (bound, n_rows)
+
+
+@pytest.mark.parametrize("m,n", [(100, 2000), (100, 11001), (1, 3), (33, 22003)])
+def test_hamming_kernel_equals_plain_at_main_path_width(card, m, n):
+    """40 cells, one word a row, 2 bits a symbol, ragged fills."""
+    from flexs_tpu_torch.ops import packed_hamming
+
+    rng = np.random.default_rng(n)
+    q, c = _hamming_inputs(rng, (40,), m, n + 2, 1, card)
+    n_rows = torch.as_tensor(rng.integers(0, n + 2, 40), device=card)
+    got = packed_hamming.masked_hamming_matrix(q, c, n_rows, n, 2, 16, 9)
+    want = packed_hamming.masked_hamming_matrix_plain(q, c, n_rows, n, 2, 16, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_hamming_wrapper_counts_launches_and_rejects_bad_inputs(card):
+    from flexs_tpu_torch.ops import packed_hamming
+
+    q, c = _hamming_inputs(np.random.default_rng(1), (2,), 4, 9, 1, card)
+    n = torch.tensor([3, 9], device=card)
+    before = packed_hamming.launches
+    for _ in range(3):
+        packed_hamming.packed_hamming_matrix(q, c, 2, 16)
+    packed_hamming.masked_hamming_matrix(q, c, n, 9, 2, 16, 9)
+    assert packed_hamming.launches == before + 4
+    with pytest.raises(TypeError, match="int64"):
+        packed_hamming.masked_hamming_matrix(q.int(), c, n, 9, 2, 16, 9)
+    with pytest.raises(ValueError, match="is on cpu"):
+        packed_hamming.masked_hamming_matrix(q, c.cpu(), n, 9, 2, 16, 9)
+    with pytest.raises(ValueError, match="is on cpu"):
+        packed_hamming.masked_hamming_matrix(q, c, n.cpu(), 9, 2, 16, 9)
+    with pytest.raises(ValueError, match="one cell axis"):
+        packed_hamming.masked_hamming_matrix(q[None], c[None], n[None], 9, 2, 16, 9)
+    empty = packed_hamming.masked_hamming_matrix(q[:, :0], c, n, 9, 2, 16, 9)
+    assert empty.shape == (2, 0, 9) and packed_hamming.launches == before + 4
+
+
+def test_hamming_kernel_is_linked_to_its_launch_in_a_profiler_trace(card):
+    """Under the profiler each kernel links to the op the wrapper opens
+    around its launch, as an aten op's kernels link to that op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexs_tpu_torch.ops import packed_hamming
+
+    q, c = _hamming_inputs(np.random.default_rng(2), (2,), 4, 9, 1, card)
+    packed_hamming.packed_hamming_matrix(q, c, 2, 16)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            packed_hamming.packed_hamming_matrix(q, c, 2, 16)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    ops = {e.correlation_id() for e in events if e.name() == packed_hamming.PROFILER_OP}
+    kernels = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "packed_hamming_kernel" in e.name()]
+    assert len(ops) == 3 and len(kernels) == 3
+    assert {e.linked_correlation_id() for e in kernels} == ops
+
+
+def test_sweep_chunk_with_the_hamming_kernel_equals_the_plain_path(card, monkeypatch):
+    """A lockstep sweep chunk's RunResult through the kernel equals, bit for
+    bit, the same chunk with the plain version in the kernel's place."""
+    from flexs_tpu_torch.alphabet import as_alphabet
+    from flexs_tpu_torch.landscapes import tf_binding
+    from flexs_tpu_torch.ops import packed_hamming
+    from flexs_tpu_torch.parallel.sweep import sweep_adalead_nam
+    from flexs_tpu_torch.runtime.jit_runner import AdaleadConfig, run_counts
+
+    _, tables = tf_binding._device_tables(card)
+    cells = 10
+    cfg = AdaleadConfig(rounds=3, sequences_batch_size=50, model_queries_per_batch=500,
+                        alphabet_size=4)
+    args = (tables, np.arange(cells) % 5,
+            as_alphabet("TGCA").encode([tf_binding.STARTS[0]] * cells),
+            np.tile(np.float32([0.5, 0.9]), cells // 2), np.arange(cells) + 2147483647, cfg)
+
+    def run():
+        return sweep_adalead_nam(*args, device=card)
+
+    before, syncs = packed_hamming.launches, run_counts["syncs"]
+    kernel = run()
+    assert packed_hamming.launches > before and run_counts["syncs"] > syncs
+    monkeypatch.setattr(packed_hamming, "masked_hamming_matrix",
+                        packed_hamming.masked_hamming_matrix_plain)
+    before = packed_hamming.launches
+    plain = run()
+    assert packed_hamming.launches == before
+    for field, a, b in zip(kernel._fields, kernel, plain):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes(), field
